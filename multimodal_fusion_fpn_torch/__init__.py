@@ -1,0 +1,14 @@
+"""PyTorch / CUDA port of ``multimodal_fusion_fpn_tpu`` for NVIDIA Hopper.
+
+A second package beside the JAX one: it imports ``torch`` and nothing of
+JAX or of the JAX package.  Tensors inside are channels-last, as in the
+JAX package; the public batch layout is the original project's.  The
+kernels the JAX package wrote in Pallas for the TPU are hand-written CUDA
+here (``csrc/``, built on first use into ``build/kernels/``), each beside
+a plain PyTorch version that the CPU takes.
+
+Ported so far: ensemble inference of ``FPNHybridFusion``
+(:func:`models.zoo.build_model`, :func:`eval.ensemble.make_ensemble_eval_step`).
+"""
+
+__version__ = "0.1.0"
