@@ -8,32 +8,69 @@ Phases, each of which fails the run on any error:
 1. Build the CUDA kernels from ``multimodal_fusion_fpn_torch/csrc``
    (``nvcc`` for sm_90a, one process per source, in parallel) and print
    the card's name and power limit.
-2. Kernels against their plain PyTorch versions, on the card, at every
-   call shape of the main path: the shapes are taken from one member's
-   forward at each of the two end-to-end configurations below.  fp32 runs
-   with TF32 off and must agree to max-abs-err <= 1e-4 * max|y|; bf16 by
-   cosine >= 0.999 and a norm ratio within 1%.  Each shape prints a JSON
-   line with the kernel's, the plain version's and one library call's
-   time (``library_ms``: ``F.conv3d`` on the already activated input, or
-   ``F.max_pool3d``; a yardstick only, the port never calls it) and the
-   least time the card could take (``bound_ms``).
-3. End to end: the 5-member ensemble of FPNHybridFusion at the ini widths,
-   seeded weights with seeded non-trivial BatchNorm running stats, at the
-   crop shapes (OCT (B, 1, 32, 496, 128), SLO (B, 1, 320, 1, 128)): bf16 at
-   B=4 (the main path) and fp32 at B=1.  The kernel path is held against
+2. Eval kernels (K1, K2, K5f) against their plain PyTorch versions, on
+   the card, at every call shape of one member's eval forward at each of
+   the two configurations below.  fp32 runs with TF32 off and must agree
+   to max-abs-err <= 1e-4 * max|y|; bf16 by cosine >= 0.999 and a norm
+   ratio within 1%.  Each shape prints a JSON line with the kernel's, the
+   plain version's and one library call's time (``library_ms``:
+   ``F.conv3d`` on the already activated input, or ``F.max_pool3d``; a
+   yardstick only, the port never calls it) and the least time the card
+   could take (``bound_ms``).
+3. Ensemble, end to end: the 5-member ensemble of FPNHybridFusion at the
+   ini widths, seeded weights with seeded non-trivial BatchNorm running
+   stats, at the crop shapes (OCT (B, 1, 32, 496, 128), SLO (B, 1, 320, 1,
+   128)): bf16 at B=4 and fp32 at B=1.  The kernel path is held against
    ``kernels=False`` on the card, one member's small-input output against
-   the CPU, and every kernel's launch count must grow.  Images/s come from
-   CUDA events: the best of four timings of three steps per path, the
+   the CPU, and every eval kernel's launch count must grow.  Images/s come
+   from CUDA events: the best of four timings of three steps per path, the
    two paths taken in turns.  One more step per path runs under
    ``torch.profiler`` for the card's busy time and its largest kernels.
-4. A ``kernels`` JSON line (per kernel: launches in the main path's run,
-   max-abs-err of the fp32 comparisons, and per-ensemble-step times summed
-   over the main path's bf16 calls), the card line, and last the
+4. Train kernels (the stats epilogue of K1/K2, K3 and K4 as dgrad and
+   wgrad, K5b) against their plain versions at every call shape of one
+   train step at each configuration, with the same tolerances (K5b exact,
+   on inputs full of ties).  Library calls: ``aten.convolution_backward``
+   (dgrad or wgrad on the activated input) and the ``F.max_pool3d``
+   backward.
+5. Train, end to end: one ``make_train_step`` (SGD lr 0.1, momentum 0.9,
+   weight decay 1e-4, Mix(Dice + BCE)) from the same seeded weights and
+   batch on the kernel path, on ``kernels=False`` and, as the reference,
+   on ``kernels=False`` at higher precision (fp32 for the bf16 step, fp64
+   for the fp32 step).  Kernel path against plain path: the loss (fp32
+   relative error <= 1e-5, bf16 <= 1e-2) and the new running stats (fp32
+   max-abs-err <= 1e-4 * max|ref| per tensor, bf16 cosine >= 0.999 and
+   norm ratio within 1%).  Both paths' updated parameters must be SGD's
+   step from their own gradients.  The gradients of both paths against
+   the reference (``compare_grads``): fp32 at cosine >= 0.9999 and norm
+   ratio within 1e-3 over all of them, each tensor as close or within
+   SPREAD_TENSOR times the plain path's distance; bf16, whose gradients
+   are mostly rounding noise at these weights, no worse than the plain
+   path's within BF16_COS_MARGIN and BF16_RATIO_MARGIN.  Then every
+   fused conv block's backward on the kernel path against the plain path
+   from the same captured input and output cotangent (``check_blocks``:
+   every gradient tensor at fp32 cosine >= 0.9999 and norm ratio within
+   1e-3, bf16 cosine >= 0.99 and ratio within 5%, each block's gradients
+   concatenated at bf16 cosine >= 0.999 and ratio within 1%), which holds
+   the autograd Functions, the stats-cotangent fold, the BatchNorm
+   backward and the rounding of dw / ds / db.  The faults in CONTROLS,
+   planted in the kernels' backward, must each fail the block check
+   (their end-to-end verdicts are printed too).  A per-module trace of
+   the plain path's output cotangents against the reference's (cosine)
+   shows where the working precision loses the gradient.  One fp32 step
+   at the small input against the same step on the CPU: loss and running
+   stats as above, gradients as a whole (cosine >= 0.9999, norm ratio
+   within 1e-3).  Train images/s and the profiler as in phase 3; every
+   train kernel's launch count must grow.
+6. A ``kernels`` JSON line (per kernel: launches in its path's step, the
+   ensemble step for the eval instances and the train step for the rest;
+   max-abs-err of its fp32 comparisons; per-step times summed over the
+   bf16 B=4 calls), the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without CUDA or without the package.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -47,16 +84,40 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12,          # dense bf16 tensor cores
               "torch.float32": 67e12}            # fp32 outside tensor cores
 CUDA_CORE_FLOPS = PEAK_FLOPS["torch.float32"]    # fp32 FMA units, any type
 MEMBERS = 5
+LR = 0.1
+WD = 1e-4                # train.optim.sgd's weight decay
+# fp32 train step: how much farther from the fp64 reference one gradient
+# tensor of the kernel path may be than the plain path's (phase 5)
+SPREAD_TENSOR = 3.0
+# bf16 train step: how much lower the kernel path's cosine to the fp32
+# reference may be than the plain path's, and how much farther from 1 its
+# norm ratio (all gradients concatenated; phase 5)
+BF16_COS_MARGIN = 0.05
+BF16_RATIO_MARGIN = 0.05
+# Faults planted in the kernel path's backward, each of which phase 5 must
+# report
+CONTROLS = ("zeroed dw", "dropped stats cotangent", "dropped ds")
 OCT_YZX = (32, 496, 128)
 SLO_HW = (320, 128)
+_FC = "multimodal_fusion_fpn_torch/csrc/fused_conv.cu"
+_FCB = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd.cu"
+_POOL = "multimodal_fusion_fpn_torch/csrc/pool.cu"
+_TPU_FC = "multimodal_fusion_fpn_tpu/ops/pallas/fused_conv.py"
+_TPU_POOL = "multimodal_fusion_fpn_tpu/ops/pallas/pool.py"
+# name -> (source, the TPU kernel it replaces, the step whose run counts)
 KERNELS = {
-    "fused_conv": ("multimodal_fusion_fpn_torch/csrc/fused_conv.cu",
-                   "multimodal_fusion_fpn_tpu/ops/pallas/fused_conv.py:375"),
-    "fused_conv_ky3": ("multimodal_fusion_fpn_torch/csrc/fused_conv.cu",
-                       "multimodal_fusion_fpn_tpu/ops/pallas/fused_conv.py:2580"),
-    "max_pool3d_cl": ("multimodal_fusion_fpn_torch/csrc/pool.cu",
-                      "multimodal_fusion_fpn_tpu/ops/pallas/pool.py:117"),
+    "fused_conv": (_FC, f"{_TPU_FC}:375", "ensemble"),
+    "fused_conv_ky3": (_FC, f"{_TPU_FC}:2580", "ensemble"),
+    "max_pool3d_cl": (_POOL, f"{_TPU_POOL}:117", "ensemble"),
+    "fused_conv_stats": (_FC, f"{_TPU_FC}:375", "train"),
+    "fused_conv_ky3_stats": (_FC, f"{_TPU_FC}:2580", "train"),
+    "fused_conv_dgrad": (_FCB, f"{_TPU_FC}:2034", "train"),
+    "fused_conv_wgrad": (_FCB, f"{_TPU_FC}:2034", "train"),
+    "fused_conv_ky3_dgrad": (_FCB, f"{_TPU_FC}:2721", "train"),
+    "fused_conv_ky3_wgrad": (_FCB, f"{_TPU_FC}:2721", "train"),
+    "max_pool3d_cl_bwd": (_POOL, f"{_TPU_POOL}:132", "train"),
 }
+TRAIN_KERNELS = [k for k, v in KERNELS.items() if v[2] == "train"]
 
 
 def emit(obj):
@@ -103,71 +164,196 @@ def compare(y, ref, dtype):
     return ok, dict(max_err=err, max_ref=peak, cos=cos, norm_ratio=ratio)
 
 
+def compare_all(pairs, dtype):
+    """compare() over named (got, ref) pairs: (ok, per-name stats, the
+    largest max_err)."""
+    stats, ok = {}, True
+    for name, got, ref in pairs:
+        o, st = compare(got, ref, dtype)
+        ok &= o
+        stats[name] = st
+    return ok, stats, max(st["max_err"] for st in stats.values())
+
+
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_conv_shape(key, n_calls, gen):
-    """Kernel vs plain (vs F.conv3d) at one recorded fused_conv call."""
+def _dtype(dts):
     import torch
-    import torch.nn.functional as F
-    from multimodal_fusion_fpn_torch.ops import fused_conv as fc
-    name, xs, ws, sz, relu, affine, dts = key
-    dt = getattr(torch, dts.split(".")[1])
-    dev = "cuda"
-    x = torch.randn(xs, generator=gen, device=dev).to(dt)
+    return getattr(torch, dts.split(".")[1])
+
+
+def conv_inputs(xs, ws, affine, dt, gen):
+    import torch
+    x = torch.randn(xs, generator=gen, device="cuda").to(dt)
     s = b = None
     if affine:
-        s = (0.5 + torch.rand(xs[-1], generator=gen, device=dev)).to(dt)
-        b = (0.5 * torch.randn(xs[-1], generator=gen, device=dev)).to(dt)
+        s = (0.5 + torch.rand(xs[-1], generator=gen, device="cuda")).to(dt)
+        b = (0.5 * torch.randn(xs[-1], generator=gen, device="cuda")).to(dt)
     fan_in = ws[0] * ws[1] * ws[2] * ws[3]
-    w = (torch.randn(ws, generator=gen, device=dev) / fan_in ** 0.5).to(dt)
+    w = (torch.randn(ws, generator=gen, device="cuda") / fan_in ** 0.5).to(dt)
+    return x, s, b, w
+
+
+def conv_cost(xs, ws, sz, esize, affine):
+    """(bytes, flops) of one forward: x, w (and scale, bias) read, y
+    written; 2 * outputs * taps * ci flops."""
+    zo = (xs[3] - 1) // sz + 1
+    n_out = xs[0] * xs[1] * xs[2] * zo * ws[4]
+    nbytes = (int(np.prod(xs)) + int(np.prod(ws)) + n_out) * esize
+    if affine:
+        nbytes += 2 * xs[-1] * esize
+    return nbytes, 2.0 * n_out * ws[0] * ws[1] * ws[2] * ws[3], n_out
+
+
+def cuda_core_ms(nbytes, flops):
+    return max(nbytes / PEAK_BYTES_PER_S, flops / CUDA_CORE_FLOPS) * 1e3
+
+
+def check_conv_shape(key, n_calls, gen):
+    """Kernel vs plain (vs F.conv3d) at one recorded fused_conv call."""
+    import torch.nn.functional as F
+    from multimodal_fusion_fpn_torch.ops import fused_conv as fc
+    name, xs, ws, sz, relu, affine, _, dts = key
+    dt = _dtype(dts)
+    x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
     y = fc.fused_conv(x, s, b, w, relu, sz)
     ref = fc.fused_conv_plain(x, s, b, w, relu, sz)
-    torch.cuda.synchronize()
     ok, stats = compare(y, ref, dt)
     t = fc.affine_relu(x, s, b, relu).permute(0, 4, 1, 2, 3)
     wl = w.permute(4, 3, 0, 1, 2).contiguous()
     pad = tuple(k // 2 for k in ws[:3])
-    esize = x.element_size()
-    n_out = y.numel()
-    nbytes = (x.numel() + w.numel() + n_out) * esize
-    if affine:
-        nbytes += 2 * xs[-1] * esize
-    flops = 2.0 * n_out * ws[0] * ws[1] * ws[2] * ws[3]
+    nbytes, flops, _ = conv_cost(xs, ws, sz, x.element_size(), affine)
     b_ms, b_by = bound(nbytes, flops, dts)
-    # the kernel accumulates on the fp32 CUDA cores whatever the type
-    cc_ms = max(nbytes / PEAK_BYTES_PER_S, flops / CUDA_CORE_FLOPS) * 1e3
-    rec = dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
-               relu=relu, affine=affine, calls_per_member=n_calls,
-               flop=flops, bytes=nbytes, bound_cuda_cores_ms=cc_ms,
-               kernel_ms=time_ms(lambda: fc.fused_conv(x, s, b, w, relu, sz)),
-               plain_ms=time_ms(
-                   lambda: fc.fused_conv_plain(x, s, b, w, relu, sz)),
-               library_ms=time_ms(lambda: F.conv3d(
-                   t, wl, stride=(1, 1, sz), padding=pad)),
-               bound_ms=b_ms, bound_by=b_by, ok=ok, **stats)
-    return rec
+    return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
+                relu=relu, affine=affine, calls_per_step=n_calls,
+                flop=flops, bytes=nbytes,
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
+                kernel_ms=time_ms(lambda: fc.fused_conv(x, s, b, w, relu, sz)),
+                plain_ms=time_ms(
+                    lambda: fc.fused_conv_plain(x, s, b, w, relu, sz)),
+                library_ms=time_ms(lambda: F.conv3d(
+                    t, wl, stride=(1, 1, sz), padding=pad)),
+                bound_ms=b_ms, bound_by=b_by, ok=ok, **stats)
+
+
+def check_stats_shape(key, n_calls, gen):
+    """The stats instance: (y, s1, s2) vs plain; s1/s2 also vs the sums
+    of the kernel's own y; two runs bitwise equal."""
+    import torch
+    import torch.nn.functional as F
+    from multimodal_fusion_fpn_torch.ops import fused_conv as fc
+    name, xs, ws, sz, relu, affine, _, dts = key
+    dt = _dtype(dts)
+    x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
+    run = lambda: fc.fused_conv(x, s, b, w, relu, sz, with_stats=True)
+    y, s1, s2 = run()
+    again = run()
+    plain = lambda: fc.fused_conv_plain(x, s, b, w, relu, sz,
+                                        with_stats=True)
+    ry, r1, r2 = plain()
+    o1, st1, err = compare_all((("y", y, ry), ("s1", s1, r1),
+                                ("s2", s2, r2)), dt)
+    k1, k2 = fc.channel_sums(y)
+    o2, st2, _ = compare_all((("s1_own", s1, k1), ("s2_own", s2, k2)),
+                             torch.float32)
+    same = all(torch.equal(a, c) for a, c in zip((y, s1, s2), again))
+    t = fc.affine_relu(x, s, b, relu).permute(0, 4, 1, 2, 3)
+    wl = w.permute(4, 3, 0, 1, 2).contiguous()
+    pad = tuple(k // 2 for k in ws[:3])
+    nbytes, flops, n_out = conv_cost(xs, ws, sz, x.element_size(), affine)
+    flops += 3.0 * n_out
+    b_ms, b_by = bound(nbytes, flops, dts)
+    return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
+                relu=relu, affine=affine, calls_per_step=n_calls,
+                flop=flops, bytes=nbytes,
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
+                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
+                library_ms=time_ms(lambda: F.conv3d(
+                    t, wl, stride=(1, 1, sz), padding=pad)),
+                bound_ms=b_ms, bound_by=b_by, ok=o1 and o2 and same,
+                bitwise_repeatable=same, max_err=err, **st1, **st2)
+
+
+def check_bwd_shape(key, n_calls, gen):
+    """dgrad (dx, ds, db) or wgrad (dw) vs its plain half, with the stats
+    cotangent where the recorded call had it; two runs bitwise equal."""
+    import torch
+    from multimodal_fusion_fpn_torch.ops import fused_conv as fc
+    name, xs, ws, sz, relu, affine, stats, dts = key
+    dt = _dtype(dts)
+    x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
+    y = fc.fused_conv(x, s, b, w, relu, sz)
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(dt)
+    cot = None
+    if stats:
+        cot = (y, torch.randn(ws[4], generator=gen, device="cuda"),
+               0.01 * torch.randn(ws[4], generator=gen, device="cuda"))
+    args = (x, s, b, w, g, relu, sz, cot)
+    dgrad = name.endswith("dgrad")
+    if dgrad:
+        run = lambda: fc._launch_dgrad(*args)
+        plain = lambda: fc.fused_conv_dgrad_plain(*args)
+        names = ("dx", "ds", "db")
+        mask = (True, False, False)
+    else:
+        run = lambda: fc._launch_wgrad(*args)
+        plain = lambda: fc.fused_conv_wgrad_plain(*args)
+        names = ("dw",)
+        mask = (False, True, False)
+    wrap = fc.fused_conv_bwd(*args)  # the public wrapper, both kernels
+    got = wrap[:3] if dgrad else wrap[3:]
+    ref = plain() if dgrad else (plain(),)
+    again = run() if dgrad else (run(),)
+    pairs = [(n, a, r) for n, a, r in zip(names, got, ref) if r is not None]
+    ok, st, err = compare_all(pairs, dt)
+    same = all(torch.equal(a, c) for a, c in zip(got, again)
+               if a is not None)
+    # library: cuDNN's backward of the plain conv on the activated input
+    t = fc.affine_relu(x, s, b, relu).permute(0, 4, 1, 2, 3)
+    wl = w.permute(4, 3, 0, 1, 2).contiguous()
+    gl = fc._fold_stats_cot(g, cot).permute(0, 4, 1, 2, 3)
+    pad = tuple(k // 2 for k in ws[:3])
+    lib = lambda: torch.ops.aten.convolution_backward(
+        gl, t, wl, None, (1, 1, sz), pad, (1, 1, 1), False, (0, 0, 0), 1,
+        mask)
+    esize = x.element_size()
+    nbytes, flops, n_out = conv_cost(xs, ws, sz, esize, affine)
+    # read x, g (and y), w or nothing, scale/bias; write dx (+ ds, db) or dw
+    nbytes = (2 * int(np.prod(xs)) if dgrad else int(np.prod(xs))) * esize
+    nbytes += n_out * esize * (2 if stats else 1)
+    nbytes += int(np.prod(ws)) * esize
+    if affine:
+        nbytes += 2 * xs[-1] * esize + (2 * xs[-1] * 4 if dgrad else 0)
+    b_ms, b_by = bound(nbytes, flops, dts)
+    return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
+                relu=relu, affine=affine, stats_cotangent=stats,
+                calls_per_step=n_calls, flop=flops, bytes=nbytes,
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
+                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
+                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                ok=ok and same, bitwise_repeatable=same, max_err=err,
+                outputs=st)
 
 
 def check_pool_shape(key, n_calls, gen):
-    import torch
     import torch.nn.functional as F
     from multimodal_fusion_fpn_torch.ops import pool
     name, xs, win, dts = key
-    dt = getattr(torch, dts.split(".")[1])
+    dt = _dtype(dts)
+    import torch
     x = torch.randn(xs, generator=gen, device="cuda").to(dt)
     y = pool.max_pool3d_cl(x, win)
     ref = pool.max_pool3d_cl_plain(x, win)
-    torch.cuda.synchronize()
     exact = torch.equal(y, ref)
     nbytes = (x.numel() + y.numel()) * x.element_size()
     b_ms, b_by = bound(nbytes, float(x.numel()), dts)
     xc = x.permute(0, 4, 1, 2, 3)
     return dict(kernel=name, dtype=dts, x=list(xs), window=list(win),
-                calls_per_member=n_calls,
+                calls_per_step=n_calls,
                 kernel_ms=time_ms(lambda: pool.max_pool3d_cl(x, win)),
                 plain_ms=time_ms(lambda: pool.max_pool3d_cl_plain(x, win)),
                 library_ms=time_ms(lambda: F.max_pool3d(xc, win)),
@@ -175,16 +361,55 @@ def check_pool_shape(key, n_calls, gen):
                 max_err=(y.float() - ref.float()).abs().max().item())
 
 
-def trace_step(step, batch, kernels):
-    """One step under torch.profiler: the card's busy time (the sum of its
-    kernels' durations, ms) and the largest kernels by name."""
+def tied(shape, gen, dt):
+    """Values on a coarse grid (windows hold exact ties, +0 and -0)."""
+    import torch
+    v = torch.randint(-2, 3, shape, generator=gen, device="cuda").float()
+    flip = torch.rand(shape, generator=gen, device="cuda") < 0.5
+    return torch.where(flip, -v, v).to(dt)
+
+
+def check_pool_bwd_shape(key, n_calls, gen):
+    """K5b vs its plain version, exact, on an input full of ties."""
+    import torch
+    import torch.nn.functional as F
+    from multimodal_fusion_fpn_torch.ops import pool
+    name, xs, win, dts = key
+    dt = _dtype(dts)
+    x = tied(xs, gen, dt)
+    y = pool.max_pool3d_cl(x, win)
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(dt)
+    run = lambda: pool.max_pool3d_cl_bwd(x, y, g, win)
+    dx = run()
+    ref = pool.max_pool3d_cl_bwd_plain(x, y, g, win)
+    exact = torch.equal(dx, ref)
+    ties = int((dx != 0).sum().item()) > int((g != 0).sum().item())
+    xc = x.permute(0, 4, 1, 2, 3)
+    _, idx = F.max_pool3d(xc, win, return_indices=True)
+    gc = g.permute(0, 4, 1, 2, 3)
+    lib = lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+        gc, xc, list(win), list(win), [0, 0, 0], [1, 1, 1], False, idx)
+    nbytes = (2 * x.numel() + 2 * y.numel()) * x.element_size()
+    b_ms, b_by = bound(nbytes, float(x.numel()), dts)
+    return dict(kernel=name, dtype=dts, x=list(xs), window=list(win),
+                calls_per_step=n_calls, kernel_ms=time_ms(run),
+                plain_ms=time_ms(
+                    lambda: pool.max_pool3d_cl_bwd_plain(x, y, g, win)),
+                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                ok=exact and ties, ties_present=ties,
+                max_err=(dx.float() - ref.float()).abs().max().item())
+
+
+def trace_step(fn):
+    """One call of ``fn`` under torch.profiler: the card's busy time (the
+    sum of its kernels' durations, ms) and the largest kernels by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(batch, kernels=kernels)
+        fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
@@ -194,12 +419,40 @@ def trace_step(step, batch, kernels):
                   for e in top]
 
 
-def make_batch(B, seed):
+def timed_paths(step, reps=3):
+    """Best-of-four step ms per path (kernels True / False), in turns, and
+    the profiler's busy time and top kernels per path."""
+    times = {}
+    for kern in (False, True, True, False) * 2:
+        times.setdefault(kern, []).append(
+            time_ms(lambda: step(kernels=kern), reps=reps, warm=0))
+    busy = {kern: trace_step(lambda: step(kernels=kern))
+            for kern in (True, False)}
+    return times, busy
+
+
+def timing_record(times, busy, B):
+    return {"step_ms_kernels": min(times[True]),
+            "step_ms_plain": min(times[False]),
+            "img_per_s_kernels": B * 1e3 / min(times[True]),
+            "img_per_s_plain": B * 1e3 / min(times[False]),
+            "step_ms_kernels_runs": times[True],
+            "step_ms_plain_runs": times[False],
+            "device_busy_ms_kernels": busy[True][0],
+            "device_busy_ms_plain": busy[False][0],
+            "device_busy_share_kernels": busy[True][0] / min(times[True]),
+            "device_busy_share_plain": busy[False][0] / min(times[False]),
+            "top_device_kernels_kernels": busy[True][1],
+            "top_device_kernels_plain": busy[False][1]}
+
+
+def make_batch(B, seed, yzx=OCT_YZX, slo_hw=SLO_HW):
     rng = np.random.default_rng(seed)
-    Y, Z, X = OCT_YZX
-    H, W = SLO_HW
+    Y, Z, X = yzx
+    H, W = slo_hw
     return {"image": rng.normal(size=(B, 1, Y, Z, X)).astype(np.float32),
-            "slo": rng.normal(size=(B, 1, H, 1, W)).astype(np.float32)}
+            "slo": rng.normal(size=(B, 1, H, 1, W)).astype(np.float32),
+            "mask": (rng.random((B, 1, Y, 1, X)) > 0.7).astype(np.float32)}
 
 
 def member_state_dicts(model, n):
@@ -224,6 +477,317 @@ def member_state_dicts(model, n):
     return out
 
 
+class Trainer:
+    """One model + optimizer + train step that can restart from a state
+    dict, so two paths start from the same weights."""
+
+    def __init__(self, cfg, dtype, device):
+        from multimodal_fusion_fpn_torch.losses import (Mix, bce_loss,
+                                                         dice_loss_joint)
+        from multimodal_fusion_fpn_torch.models.zoo import build_model
+        self.model = build_model(cfg, dtype=dtype, device=device)
+        self.crit = Mix({"Dice Loss": dice_loss_joint(),
+                         "BCE loss": bce_loss()})
+        self.device = device
+
+    def reset(self, sd):
+        from multimodal_fusion_fpn_torch.train.optim import sgd
+        from multimodal_fusion_fpn_torch.train.state import \
+            create_train_state
+        from multimodal_fusion_fpn_torch.train.step import make_train_step
+        opt = sgd(self.model.parameters(), LR)
+        self.state = create_train_state(self.model, opt, sd)
+        self.step_fn = make_train_step(self.model, opt, self.crit,
+                                       device=self.device)
+
+    def step(self, batch, kernels=True):
+        return self.step_fn(self.state, batch, kernels=kernels)
+
+    def snapshot(self):
+        """(grads, state dict) after a step, fp32 copies."""
+        grads = {k: p.grad.detach().float().clone()
+                 for k, p in self.model.named_parameters()}
+        sd = {k: v.detach().clone()
+              for k, v in self.model.state_dict().items()}
+        return grads, sd
+
+
+def _flat(v):
+    return v.double().flatten()
+
+
+def grad_agreement(a, b):
+    """(cosine, norm ratio, L2 distance) of two gradient tensors."""
+    import torch
+    a, b = _flat(a), _flat(b)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    return cos, (a.norm() / b.norm()).item(), (a - b).norm().item()
+
+
+def _cat(grads, names):
+    import torch
+    return torch.cat([_flat(grads[k]) for k in names])
+
+
+def compare_forward(a, b, dtype):
+    """What the forward of train step ``a`` determines, against step
+    ``b`` (module note, phase 5): the loss, the new running stats and the
+    batch counts."""
+    import torch
+    (aux_a, _, sd_a), (aux_b, _, sd_b) = a, b
+    fp32 = dtype == torch.float32
+    out = {}
+    la, lb = float(aux_a["loss"]), float(aux_b["loss"])
+    out["loss"] = [la, lb]
+    out["loss_rel_err"] = abs(la - lb) / abs(lb)
+    ok = out["loss_rel_err"] <= (1e-5 if fp32 else 1e-2)
+    bad, worst = [], 0.0
+    for k, v in sd_a.items():
+        if k.endswith("num_batches_tracked"):
+            if not torch.equal(v, sd_b[k]):
+                bad.append([k, v.item(), sd_b[k].item()])
+        elif k.endswith(("running_mean", "running_var")):
+            o, st = compare(v.float(), sd_b[k].float(),
+                            torch.float32 if fp32 else torch.bfloat16)
+            worst = max(worst, st["max_err"] / max(st["max_ref"], 1e-30))
+            if not o:
+                bad.append([k, st])
+    out["running_worst_rel_err"] = worst
+    out["running_bad"] = bad[:10]
+    return ok and not bad, out
+
+
+def compare_grads(k, p, ref, dtype):
+    """Gradients of the kernel path ``k`` and the plain path ``p`` against
+    the plain path at higher precision ``ref`` (module note, phase 5).
+
+    fp32: all gradients concatenated at cosine >= 0.9999 and norm ratio
+    within 1e-3; each tensor at the same thresholds, or no farther from
+    ``ref`` (relative L2 distance) than SPREAD_TENSOR times the plain
+    path's, on that tensor or on all gradients, whichever is larger: a
+    ReLU whose input lies within fp32 rounding of 0 flips at other places
+    on the two paths, and moves every gradient upstream of it.
+
+    bf16: the gradients are mostly rounding noise at these weights (the
+    BatchNorm backward cancels most of each cotangent; the JAX package's
+    own bf16 step sits at a cosine of about 0.4 from its fp32 step,
+    ``tests/test_torch_train.py``).  All gradients concatenated: the kernel
+    path's cosine to ``ref`` at least the plain path's minus
+    BF16_COS_MARGIN, its norm ratio no farther from 1 than the plain
+    path's plus BF16_RATIO_MARGIN.  Each tensor is held by
+    ``check_blocks``, from the same inputs and cotangents."""
+    import torch
+    fp32 = dtype == torch.float32
+    names = list(k)
+    out = {}
+    ck, rk, dk = grad_agreement(_cat(k, names), _cat(ref, names))
+    cp, rp, dp = grad_agreement(_cat(p, names), _cat(ref, names))
+    level = dp / _cat(ref, names).norm().item()
+    out["grad_cos_all_kernels_vs_plain"] = grad_agreement(
+        _cat(k, names), _cat(p, names))[0]
+    out["grad_all"] = {"kernels": [ck, rk, dk], "plain": [cp, rp, dp],
+                       "plain_rel_dist": level}
+    if fp32:
+        ok = ck >= 0.9999 and abs(rk - 1) <= 1e-3
+    else:
+        ok = (ck >= cp - BF16_COS_MARGIN
+              and abs(rk - 1) <= abs(rp - 1) + BF16_RATIO_MARGIN)
+    bad, entries, n_fixed = [], [], 0
+    for name in names:
+        if not (k[name].any() or ref[name].any()):
+            continue  # both exactly zero
+        norm = max(_flat(ref[name]).norm().item(), 1e-30)
+        ck_, rk_, dk_ = grad_agreement(k[name], ref[name])
+        dp_ = grad_agreement(p[name], ref[name])[2]
+        fixed = (ck_ >= 0.9999 and abs(rk_ - 1) <= 1e-3) if fp32 \
+            else ck_ >= 0.99
+        n_fixed += fixed
+        entry = [name, dk_ / norm, dp_ / norm]
+        entries.append(entry)
+        if fp32 and not (fixed or dk_ / norm <= SPREAD_TENSOR * max(
+                dp_ / norm, level)):
+            bad.append(entry)
+    ok = bool(ok) and not bad  # a NaN cosine fails
+    out["grad_tensors"] = len(names)
+    out["grad_tensors_at_fixed_thresholds"] = n_fixed
+    out["grad_worst_rel_dist"] = sorted(entries, key=lambda e: -e[1])[:5]
+    out["grad_bad"] = bad[:10]
+    return ok, out
+
+
+def fused_blocks(model):
+    """The conv blocks whose convs take the kernels: {name: ConvX}."""
+    from multimodal_fusion_fpn_torch.models.blocks import ConvX
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, ConvX) and m.fused}
+
+
+def capture_blocks(tr, batch):
+    """Each fused block's input and output cotangent in one plain-path
+    forward and backward of the train step's model (no optimizer step)."""
+    from multimodal_fusion_fpn_torch.train.step import model_batch
+    cap, hooks = {}, []
+
+    def hook(name):
+        def fn(mod, inp, out):
+            cap[name] = [inp[0].detach(), None]
+            out.register_hook(
+                lambda g: cap[name].__setitem__(1, g.detach()))
+        return fn
+
+    for name, mod in fused_blocks(tr.model).items():
+        hooks.append(mod.register_forward_hook(hook(name)))
+    try:
+        b = model_batch(batch, tr.device)
+        tr.model.train()
+        tr.crit(b, tr.model(b, kernels=False))[0].backward()
+    finally:
+        for h in hooks:
+            h.remove()
+        tr.model.zero_grad(set_to_none=True)
+    return cap
+
+
+def block_grads(mod, x, g, kernels):
+    """dx and the parameter gradients of one block's forward and backward
+    from input ``x`` and output cotangent ``g``."""
+    mod.zero_grad(set_to_none=True)
+    xi = x.clone().requires_grad_()
+    mod(xi, kernels).backward(g)
+    out = {"dx": xi.grad.float()}
+    out.update({k: v.grad.float() for k, v in mod.named_parameters()})
+    mod.zero_grad(set_to_none=True)
+    return out
+
+
+def _scale_invariant(mod, name):
+    """A 1x1 conv weight with one input channel that feeds a train-mode
+    BatchNorm: the BatchNorm makes the output invariant to it up to eps,
+    so its gradient is the rounding of a cancellation (both paths compute
+    it with cuDNN)."""
+    if not name.endswith(".0.weight"):
+        return False
+    w = mod.get_parameter(name)
+    return w.dim() > 2 and w.shape[1] == 1 and all(k == 1
+                                                   for k in w.shape[2:])
+
+
+def check_blocks(tr, cap, dtype):
+    """Each fused block's backward on the kernel path against the plain
+    path, from the same captured input and output cotangent: every
+    gradient (dx and each parameter's) at fp32 cosine >= 0.9999 and norm
+    ratio within 1e-3, bf16 cosine >= 0.99 and norm ratio within 5%; all
+    of a block's gradients concatenated at fp32 the same, bf16 cosine >=
+    0.999 and norm ratio within 1%.  (ok, per-block records)."""
+    import torch
+    fp32 = dtype == torch.float32
+    one = (0.9999, 1e-3) if fp32 else (0.99, 0.05)
+    cat = (0.9999, 1e-3) if fp32 else (0.999, 0.01)
+    blocks = fused_blocks(tr.model)
+    ok, recs = True, []
+    for name, (x, g) in cap.items():
+        mod = blocks[name]
+        kern = block_grads(mod, x, g, True)
+        plain = block_grads(mod, x, g, False)
+        worst, bad = [None, 2.0, 0.0], []
+        names = [n for n in plain if not _scale_invariant(mod, n)]
+        for n in names:
+            c, r, _ = grad_agreement(kern[n], plain[n])
+            if not (c >= one[0] and abs(r - 1) <= one[1]):
+                bad.append([n, c, r])
+            if not c >= worst[1]:
+                worst = [n, c, r]
+        c_all, r_all, _ = grad_agreement(_cat(kern, names),
+                                         _cat(plain, names))
+        block_ok = not bad and c_all >= cat[0] and abs(r_all - 1) <= cat[1]
+        ok &= block_ok
+        recs.append({"block": name, "ok": block_ok, "cos_all": c_all,
+                     "norm_ratio_all": r_all, "worst": worst,
+                     "bad": bad[:5]})
+    return ok, recs
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """The kernels' backward (``fused_conv.fused_conv_bwd``, which the
+    autograd Function calls) with one of CONTROLS planted."""
+    import torch
+    from multimodal_fusion_fpn_torch.ops import fused_conv as fc
+    real = fc.fused_conv_bwd
+
+    def bwd(x, scale, bias, w, g, relu, stride_z=1, stats_cot=None):
+        if fault == "dropped stats cotangent":
+            stats_cot = None
+        dx, ds, db, dw = real(x, scale, bias, w, g, relu, stride_z,
+                              stats_cot)
+        if fault == "zeroed dw":
+            dw = torch.zeros_like(dw)
+        if fault == "dropped ds" and ds is not None:
+            ds = torch.zeros_like(ds)
+        return dx, ds, db, dw
+
+    fc.fused_conv_bwd = bwd
+    try:
+        yield
+    finally:
+        fc.fused_conv_bwd = real
+
+
+@contextlib.contextmanager
+def cotangent_trace(model, out, depth=2, sample=1 << 20):
+    """Records into ``out`` a strided sample (at most ``sample`` elements,
+    fp64) of the output cotangent of every module at most ``depth`` deep
+    below the model's children, in the order the backward reaches them."""
+    import torch
+    hooks = []
+
+    def hook(name):
+        def fn(mod, inp, res):
+            if torch.is_tensor(res) and res.requires_grad:
+                def keep(g):
+                    step = max(1, g.numel() // sample)
+                    out[name] = g.detach().flatten()[::step].double()
+                res.register_hook(keep)
+        return fn
+
+    for name, mod in model.named_modules():
+        if name and name.count(".") <= depth:
+            hooks.append(mod.register_forward_hook(hook(name)))
+    try:
+        yield out
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_sgd_update(p0, grads, p1):
+    """The updated parameters are SGD's first step (momentum buffer =
+    g + wd*p) from the path's own gradients: max-abs-err <= 1e-6 *
+    max|new p|."""
+    worst = 0.0
+    for name, g in grads.items():
+        want = p0[name].double() - LR * (g.double() + WD * p0[name].double())
+        err = (p1[name].double() - want).abs().max().item()
+        worst = max(worst, err / max(want.abs().max().item(), 1e-30))
+    return worst <= 1e-6, worst
+
+
+def compare_whole(a, b):
+    """fp32 train step ``a`` against ``b`` on another device: the forward
+    (compare_forward) and all gradients concatenated (cosine >= 0.9999,
+    norm ratio within 1e-3)."""
+    import torch
+    ok, out = compare_forward(a, b, torch.float32)
+    names = list(a[1])
+    cos, ratio, _ = grad_agreement(_cat(a[1], names), _cat(b[1], names))
+    out.update(grad_cos_all=cos, grad_norm_ratio_all=ratio)
+    return ok and cos >= 0.9999 and abs(ratio - 1) <= 1e-3, out
+
+
+def per_step(records, field):
+    return sum(r[field] * r["calls_per_step"] for r in records)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -238,17 +802,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
+    t_start = time.time()
 
     # --- 1. build ---------------------------------------------------------
-    t0 = time.time()
-    _build.build(["fused_conv", "pool"])
-    for name in ("fused_conv", "pool"):
+    libs = ["fused_conv", "fused_conv_bwd", "pool"]
+    _build.build(libs)
+    for name in libs:
         _build.load(name)
     card = card_line()
     print(card, flush=True)
-    emit({"phase": "build", "seconds": time.time() - t0,
-          "libraries": [_build.library_path(n) for n in ("fused_conv",
-                                                          "pool")]})
+    emit({"phase": "build", "seconds": time.time() - t_start,
+          "libraries": [_build.library_path(n) for n in libs]})
 
     cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
                           fusion_modality="slo", number_of_outputs=1)
@@ -256,8 +820,10 @@ def main() -> int:
     configs = [("bf16_B4", torch.bfloat16, 4), ("fp32_B1", torch.float32, 1)]
     models = {tag: build_model(cfg, dtype=dt) for tag, dt, _ in configs}
     sds = member_state_dicts(models["fp32_B1"], MEMBERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = {}   # (tag, key) -> record, every kernel check
 
-    # --- 2. kernels vs plain at every main-path call shape ---------------
+    # --- 2. eval kernels vs plain at every eval call shape ---------------
     shapes = {}
     for tag, dt, B in configs:
         model = models[tag]
@@ -272,29 +838,22 @@ def main() -> int:
                        ops.kernel_launches())
         emit({"phase": "shapes", "config": tag,
               "launches_per_member": shapes[tag][2]})
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    records = {}
     for tag, _, _ in configs:
         conv_calls, pool_calls, _ = shapes[tag]
         for key, n in sorted(conv_calls.items(), key=str):
-            rec = check_conv_shape(key, n, gen)
-            records[(tag, key)] = rec
-            emit(rec)
+            records[(tag, key)] = check_conv_shape(key, MEMBERS * n, gen)
+            emit(records[(tag, key)])
         for key, n in sorted(pool_calls.items(), key=str):
-            rec = check_pool_shape(key, n, gen)
-            records[(tag, key)] = rec
-            emit(rec)
-    bad = [r for r in records.values() if not r["ok"]]
-    if bad:
-        failures.append(f"{len(bad)} kernel/plain comparisons failed")
+            records[(tag, key)] = check_pool_shape(key, MEMBERS * n, gen)
+            emit(records[(tag, key)])
 
-    # --- 3. end to end ----------------------------------------------------
-    main_launches = None
+    # --- 3. ensemble, end to end -----------------------------------------
+    main_launches = {}
     for tag, dt, B in configs:
         model = models[tag]
         step = make_ensemble_eval_step(model, sds)
         batch = {k: torch.from_numpy(v).cuda()
-                 for k, v in make_batch(B, 1).items()}
+                 for k, v in make_batch(B, 1).items() if k != "mask"}
         step(batch, kernels=False)
         step(batch)
         torch.cuda.synchronize()
@@ -305,37 +864,21 @@ def main() -> int:
         ref = step(batch, kernels=False)["prediction"]
         torch.cuda.synchronize()
         if tag == "bf16_B4":
-            main_launches = launches
+            main_launches["ensemble"] = launches
         ok, stats = compare(pred.float() - 0.5, ref.float() - 0.5, dt)
         if pred.shape != (B, 1, OCT_YZX[0], 1, OCT_YZX[2]):
             ok = False
         per_member = shapes[tag][2]
         counted = all(launches[k] == MEMBERS * per_member[k] > 0
-                      for k in KERNELS)
-        times = {}
-        for kern in (False, True, True, False) * 2:
-            times.setdefault(kern, []).append(
-                time_ms(lambda: step(batch, kernels=kern), reps=3, warm=0))
-        # the card's busy share: its kernel time over the step's time
-        busy = {kern: trace_step(step, batch, kern) for kern in (True, False)}
+                      for k, v in KERNELS.items() if v[2] == "ensemble")
+        times, busy = timed_paths(lambda kernels: step(batch, kernels))
         torch.cuda.reset_peak_memory_stats()
         step(batch)
         torch.cuda.synchronize()
         emit({"phase": "e2e", "config": tag, "members": MEMBERS, "batch": B,
               "prediction_shape": list(pred.shape), "ok": ok,
               "launches": launches, "launches_match": counted,
-              "step_ms_kernels": min(times[True]),
-              "step_ms_plain": min(times[False]),
-              "img_per_s_kernels": B * 1e3 / min(times[True]),
-              "img_per_s_plain": B * 1e3 / min(times[False]),
-              "step_ms_kernels_runs": times[True],
-              "step_ms_plain_runs": times[False],
-              "device_busy_ms_kernels": busy[True][0],
-              "device_busy_ms_plain": busy[False][0],
-              "device_busy_share_kernels": busy[True][0] / min(times[True]),
-              "device_busy_share_plain": busy[False][0] / min(times[False]),
-              "top_device_kernels_kernels": busy[True][1],
-              "top_device_kernels_plain": busy[False][1],
+              **timing_record(times, busy, B),
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
               "card": card, **stats})
         if not ok:
@@ -345,10 +888,7 @@ def main() -> int:
                             f"{MEMBERS} x {per_member}")
 
     # one member on a small input against the CPU's plain path
-    small = {"image": np.random.default_rng(2).normal(
-        size=(1, 1, 8, 64, 32)).astype(np.float32),
-        "slo": np.random.default_rng(3).normal(
-        size=(1, 1, 80, 1, 32)).astype(np.float32)}
+    small = make_batch(1, 2, (8, 64, 32), (80, 32))
     model = models["fp32_B1"]
     model.load_state_dict(sds[1])
     with torch.inference_mode():
@@ -362,31 +902,174 @@ def main() -> int:
     emit({"phase": "small_vs_cpu", "ok": ok, **stats})
     if not ok:
         failures.append("small input: card disagrees with the CPU")
+    del models
+    torch.cuda.empty_cache()
 
-    # --- 4. summary -------------------------------------------------------
+    # --- 4. train kernels vs plain at every train-step call shape -------
+    trainers = {tag: Trainer(cfg, dt, "cuda") for tag, dt, _ in configs}
+    train_shapes = {}
+    for tag, dt, B in configs:
+        tr = trainers[tag]
+        tr.reset(sds[0])
+        batch = make_batch(B, 3)
+        ops.reset_launches()
+        tr.step(batch)
+        torch.cuda.synchronize()
+        train_shapes[tag] = (dict(fused_conv.calls), dict(pool.calls),
+                             ops.kernel_launches())
+        emit({"phase": "train_shapes", "config": tag,
+              "launches_per_step": train_shapes[tag][2]})
+    check = {"fused_conv_stats": check_stats_shape,
+             "fused_conv_ky3_stats": check_stats_shape,
+             "fused_conv_dgrad": check_bwd_shape,
+             "fused_conv_wgrad": check_bwd_shape,
+             "fused_conv_ky3_dgrad": check_bwd_shape,
+             "fused_conv_ky3_wgrad": check_bwd_shape,
+             "max_pool3d_cl_bwd": check_pool_bwd_shape}
+    for tag, _, _ in configs:
+        conv_calls, pool_calls, _ = train_shapes[tag]
+        for key, n in sorted({**conv_calls, **pool_calls}.items(), key=str):
+            if key[0] in check:
+                rec = check[key[0]](key, n, gen)
+                records[(tag, key)] = rec
+                emit(rec)
+    bad = [r for r in records.values() if not r["ok"]]
+    if bad:
+        failures.append(f"{len(bad)} kernel/plain comparisons failed: "
+                        f"{sorted({r['kernel'] for r in bad})}")
+
+    # --- 5. train, end to end ---------------------------------------------
+    ref_dtype = {torch.bfloat16: torch.float32, torch.float32: torch.float64}
+    for tag, dt, B in configs:
+        tr = trainers[tag]
+        batch = make_batch(B, 4)
+        results, plain_trace, ref_trace = {}, {}, {}
+        for kern in (False, True):
+            tr.reset(sds[0])
+            torch.cuda.synchronize()
+            if kern:
+                ops.reset_launches()
+                aux = tr.step(batch, kernels=True)
+                torch.cuda.synchronize()
+                launches = ops.kernel_launches()
+            else:
+                with cotangent_trace(tr.model, plain_trace):
+                    aux = tr.step(batch, kernels=False)
+            results[kern] = (aux, *tr.snapshot())
+        ref_tr = Trainer(cfg, ref_dtype[dt], "cuda")
+        ref_tr.reset(sds[0])
+        with cotangent_trace(ref_tr.model, ref_trace):
+            ref_tr.step(batch, kernels=False)
+        ref_grads = ref_tr.snapshot()[0]
+        del ref_tr
+        torch.cuda.empty_cache()
+        if tag == "bf16_B4":
+            main_launches["train"] = launches
+        ok_f, cmp = compare_forward(results[True], results[False], dt)
+        ok_g, cmp_g = compare_grads(results[True][1], results[False][1],
+                                    ref_grads, dt)
+        ok_u = True
+        for kern, label in ((True, "kernels"), (False, "plain")):
+            o, cmp[f"sgd_update_worst_rel_err_{label}"] = check_sgd_update(
+                sds[0], {k: v.cpu() for k, v in results[kern][1].items()},
+                {k: v.cpu() for k, v in results[kern][2].items()})
+            ok_u &= o
+        # each fused block from the same input and cotangent, then the
+        # planted faults, each of which the block check must report
+        tr.reset(sds[0])
+        cap = capture_blocks(tr, batch)
+        ok_b, blocks = check_blocks(tr, cap, dt)
+        controls = {}
+        for fault in CONTROLS:
+            with planted(fault):
+                c_blocks = check_blocks(tr, cap, dt)[0]
+                tr.reset(sds[0])
+                tr.step(batch)
+                c_grads = compare_grads(tr.snapshot()[0], results[False][1],
+                                        ref_grads, dt)[0]
+            controls[fault] = {"blocks_ok": c_blocks, "grads_ok": c_grads}
+        caught = not any(c["blocks_ok"] for c in controls.values())
+        del cap
+        torch.cuda.empty_cache()
+        ok = ok_f and ok_g and ok_u and ok_b and caught
+        cmp.update(cmp_g, reference_dtype=str(ref_dtype[dt]))
+        counted = all(launches[k] > 0 for k in TRAIN_KERNELS + [
+            "max_pool3d_cl"])
+        emit({"phase": "train_blocks", "config": tag, "ok": ok_b,
+              "blocks": blocks})
+        emit({"phase": "grad_trace", "config": tag,
+              "reference_dtype": str(ref_dtype[dt]),
+              "modules": [[n, grad_agreement(plain_trace[n], g)[0],
+                           g.norm().item()]
+                          for n, g in ref_trace.items() if n in plain_trace]})
+        del plain_trace, ref_trace
+        times, busy = timed_paths(lambda kernels: tr.step(batch, kernels))
+        torch.cuda.reset_peak_memory_stats()
+        tr.step(batch)
+        torch.cuda.synchronize()
+        emit({"phase": "train_e2e", "config": tag, "batch": B, "ok": ok,
+              "forward_ok": ok_f, "grads_ok": ok_g, "sgd_ok": ok_u,
+              "blocks_ok": ok_b, "controls": controls,
+              "controls_caught": caught,
+              "launches": launches, "launches_grew": counted, **cmp,
+              **timing_record(times, busy, B),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "card": card})
+        if not ok:
+            failures.append(f"train {tag}: forward {ok_f}, gradients {ok_g},"
+                            f" SGD {ok_u}, blocks {ok_b}, controls caught "
+                            f"{caught}")
+        if not counted:
+            failures.append(f"train {tag}: a train kernel was not "
+                            f"launched: {launches}")
+
+    # one fp32 train step on a small input against the CPU
+    small = make_batch(1, 5, (8, 64, 32), (80, 32))
+    tr = trainers["fp32_B1"]
+    tr.reset(sds[1])
+    aux = tr.step(small)
+    on_card = (aux, *tr.snapshot())
+    cpu = Trainer(cfg, torch.float32, "cpu")
+    cpu.reset(sds[1])
+    aux = cpu.step(small)
+    ok, cmp = compare_whole(
+        ({k: v.cpu() if torch.is_tensor(v) else v
+          for k, v in on_card[0].items()},
+         *({k: v.cpu() for k, v in d.items()} for d in on_card[1:])),
+        (aux, *cpu.snapshot()))
+    emit({"phase": "train_small_vs_cpu", "ok": ok, **cmp})
+    if not ok:
+        failures.append("train, small input: card disagrees with the CPU")
+
+    # --- 6. summary -------------------------------------------------------
     summary = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, path) in KERNELS.items():
         main = [r for (tag, _), r in records.items()
                 if tag == "bf16_B4" and r["kernel"] == name]
         fp32 = [r for (tag, _), r in records.items()
                 if tag == "fp32_B1" and r["kernel"] == name]
-        per_step = lambda f: MEMBERS * sum(r[f] * r["calls_per_member"]
-                                           for r in main)
-        t_bytes = MEMBERS * sum(r["calls_per_member"] * r["bound_ms"]
-                                for r in main if r["bound_by"] == "bytes")
-        t_ops = MEMBERS * sum(r["calls_per_member"] * r["bound_ms"]
-                              for r in main if r["bound_by"] != "bytes")
+        t_bytes = sum(r["calls_per_step"] * r["bound_ms"]
+                      for r in main if r["bound_by"] == "bytes")
+        t_ops = sum(r["calls_per_step"] * r["bound_ms"]
+                    for r in main if r["bound_by"] != "bytes")
+        launches = main_launches[path][name]
         summary.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_launches[name],
+            "replaces": replaces, "step": path, "launches": launches,
+            "launches_train_step": main_launches["train"][name],
+            "launches_ensemble_step": main_launches["ensemble"][name],
             "max_abs_err": max(r["max_err"] for r in fp32),
-            "bf16_min_cos": min(r.get("cos", 1.0) for r in main),
-            "ms": per_step("kernel_ms"), "plain_ms": per_step("plain_ms"),
-            "bound_ms": per_step("bound_ms"),
+            "ms": per_step(main, "kernel_ms"),
+            "plain_ms": per_step(main, "plain_ms"),
+            "bound_ms": per_step(main, "bound_ms"),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": per_step("library_ms")})
-        if main_launches[name] <= 0:
-            failures.append(f"{name} was not launched on the main path")
+            "bound_cuda_cores_ms": sum(
+                r["calls_per_step"] * r.get("bound_cuda_cores_ms",
+                                            r["bound_ms"]) for r in main),
+            "library_ms": per_step(main, "library_ms")})
+        if launches <= 0:
+            failures.append(f"{name} was not launched on the {path} path")
+    emit({"phase": "done", "seconds": time.time() - t_start})
     if failures:
         for f in failures:
             print("chip_smoke: FAILED:", f, file=sys.stderr)

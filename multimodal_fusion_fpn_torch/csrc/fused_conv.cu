@@ -10,8 +10,13 @@
 // serves both: K2 is the instantiation with kY = 3.  What the TPU kernels
 // compute is kept; their blocking is not: no band/wrap weight matrices, no
 // (bs, nb) packing, no row rolls, no G-row slabs.  The second input of the
-// TPU kernel (n_in = 2) is unused on every model path and is left out, as is
-// the training-only BN-stats epilogue.
+// TPU kernel (n_in = 2) is unused on every model path and is left out.
+//
+// With `stats` (training, the TPU kernels' `with_stats`) the epilogue also
+// returns the per-output-channel fp32 sums of y and y*y of the ROUNDED output
+// (what the JAX `_stats_of` reads back from y), for the next BatchNorm: each
+// block writes its 32 partial sums (16 channels x 2) and `reduce_sums32` adds
+// them in a fixed order, so the sums are bitwise reproducible.
 //
 // Padding applies to the ACTIVATED input: an out-of-range tap reads 0, not
 // relu(bias).  In bf16 the prologue rounds where the JAX bf16 prologue does
@@ -26,74 +31,30 @@
 // tile (with halo) is activated once into shared memory in chunks of 8 input
 // channels, laid out [channel][row][z] so a warp reads 32 consecutive words;
 // the 16 weights per (tap, channel) are a shared-memory broadcast read as four
-// float4.  No tensor cores yet: wgmma/TMA are later work.
+// float4 (`conv_tile`, fused_conv_common.cuh, shared with the dgrad kernel).
+// No tensor cores yet: wgmma/TMA are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "fused_conv_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTZ = 32;    // output z per tile (one warp)
-constexpr int kTYX = 8;    // output rows per tile (TY * TX == 8)
-constexpr int kCI = 8;     // input channels per shared-memory chunk
-constexpr int kCO = 16;    // output channels per block
+using namespace mmf;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// x*s+b with the storage type's rounding after each op (no fma contraction).
-__device__ __forceinline__ float affine(float x, float s, float b) {
-  return __fadd_rn(__fmul_rn(x, s), b);
-}
-__device__ __forceinline__ float affine(__nv_bfloat16 x, __nv_bfloat16 s, __nv_bfloat16 b) {
-  float p = __bfloat162float(__float2bfloat16_rn(__bfloat162float(x) * __bfloat162float(s)));
-  return __bfloat162float(__float2bfloat16_rn(p + __bfloat162float(b)));
+// Blocks per SM the compiler must fit: 4 (at most 64 registers a thread),
+// or 3 (80) for the stats-free (1,3,3) instance.  Left to itself nvcc gives
+// the (3,1,1) instance 68 registers and the (1,3,3) instances 91-98, one
+// block per SM fewer and 8-13% slower (tools/forward_ab.py, chip_smoke.py).
+__host__ __device__ constexpr int min_blocks(int KX, bool stats) {
+  return KX == 3 && !stats ? 3 : 4;
 }
 
-__device__ __forceinline__ void store16(float* dst, const float* acc) {
-  float4* d = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    d[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-}
-__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* acc) {
-  __align__(16) __nv_bfloat162 h[8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) h[q] = __floats2bfloat162_rn(acc[2 * q], acc[2 * q + 1]);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  const uint4* s = reinterpret_cast<const uint4*>(h);
-  d[0] = s[0];
-  d[1] = s[1];
-}
-
-// Largest (TY + KY - 1) * (TX + KX - 1) over the tile shapes TY * TX == 8.
-__host__ __device__ constexpr int max_rows(int KY, int KX) {
-  int m = 0;
-  for (int tx = 1; tx <= kTYX; tx *= 2) {
-    int r = (kTYX / tx + KY - 1) * (tx + KX - 1);
-    m = r > m ? r : m;
-  }
-  return m;
-}
-
-template <typename T, int KY, int KX, int KZ, int SZ>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int KY, int KX, int KZ, int SZ, bool STATS>
+__global__ void __launch_bounds__(kThreads, min_blocks(KX, STATS))
 fused_conv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                   const T* __restrict__ bias, const T* __restrict__ w,
-                  T* __restrict__ out, int Y, int X, int Z, int Zo, int ci,
-                  int co, int TX, int relu) {
-  constexpr int NZS = SZ * (kTZ - 1) + KZ;  // input z span of a tile
-  constexpr int ROWS = max_rows(KY, KX);
-  constexpr int TAPS = KY * KX * KZ;
-  __shared__ float s_in[kCI * ROWS * NZS];
-  __shared__ __align__(16) float s_w[TAPS * kCI * kCO];
-
+                  T* __restrict__ out, float* __restrict__ partial, int Y,
+                  int X, int Z, int Zo, int ci, int co, int TX, int relu) {
   const int TY = kTYX / TX;
-  const int NXS = TX + KX - 1;
-  const int NYS = TY + KY - 1;
-  const int rows = NYS * NXS;
   const int n_xt = (X + TX - 1) / TX;
   const int zt = blockIdx.x / n_xt;
   const int xt = blockIdx.x % n_xt;
@@ -101,105 +62,88 @@ fused_conv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   const int b = blockIdx.z / n_cg;
   const int cg = blockIdx.z % n_cg;
   const int y0 = blockIdx.y * TY, x0 = xt * TX, z0 = zt * kTZ;
+  const int tz = threadIdx.x % kTZ;
+  const int ty = threadIdx.x / kTZ / TX, tx = threadIdx.x / kTZ % TX;
 
-  const int tid = threadIdx.x;
-  const int tz = tid % kTZ;
-  const int tyx = tid / kTZ;
-  const int ty = tyx / TX, tx = tyx % TX;
-
+  // the activated input, zero outside the volume; w[tap][ch][cg*16 + o]
   const int64_t x_b = (int64_t)b * Y * X * Z * ci;
   float acc[kCO];
-#pragma unroll
-  for (int o = 0; o < kCO; ++o) acc[o] = 0.f;
-
-  for (int c0 = 0; c0 < ci; c0 += kCI) {
-    __syncthreads();
-    // activated input tile, zero outside the volume
-    const int n_in = kCI * rows * NZS;
-    for (int idx = tid; idx < n_in; idx += kThreads) {
-      const int c = idx % kCI;
-      const int p = idx / kCI;
-      const int zz = p % NZS;
-      const int r = p / NZS;
-      const int yy = r / NXS, xx = r % NXS;
-      const int gy = y0 + yy - KY / 2, gx = x0 + xx - KX / 2;
-      const int gz = z0 * SZ + zz - KZ / 2;
-      float v = 0.f;
-      if (gy >= 0 && gy < Y && gx >= 0 && gx < X && gz >= 0 && gz < Z) {
-        const int ch = c0 + c;
-        const T xv = x[x_b + (((int64_t)gy * X + gx) * Z + gz) * ci + ch];
-        v = scale != nullptr ? affine(xv, scale[ch], bias[ch]) : to_f(xv);
-        if (relu) v = fmaxf(v, 0.f);
-      }
-      s_in[(c * ROWS + r) * NZS + zz] = v;
-    }
-    // weights of this channel chunk and output-channel group: [tap][c][o]
-    for (int idx = tid; idx < TAPS * kCI * kCO; idx += kThreads) {
-      const int o = idx % kCO;
-      const int c = (idx / kCO) % kCI;
-      const int tap = idx / (kCO * kCI);
-      s_w[idx] = to_f(w[((int64_t)tap * ci + c0 + c) * co + cg * kCO + o]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int c = 0; c < kCI; ++c) {
-#pragma unroll
-      for (int dy = 0; dy < KY; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < KX; ++dx) {
-          const float* src = s_in + (c * ROWS + (ty + dy) * NXS + tx + dx) * NZS + tz * SZ;
-#pragma unroll
-          for (int dz = 0; dz < KZ; ++dz) {
-            const float v = src[dz];
-            const float4* wp = reinterpret_cast<const float4*>(
-                s_w + (((dy * KX + dx) * KZ + dz) * kCI + c) * kCO);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float4 w4 = wp[q];
-              acc[4 * q] = fmaf(v, w4.x, acc[4 * q]);
-              acc[4 * q + 1] = fmaf(v, w4.y, acc[4 * q + 1]);
-              acc[4 * q + 2] = fmaf(v, w4.z, acc[4 * q + 2]);
-              acc[4 * q + 3] = fmaf(v, w4.w, acc[4 * q + 3]);
-            }
-          }
-        }
-      }
-    }
-  }
+  conv_tile<KY, KX, KZ, SZ>(
+      acc, ci, Y, X, TX, y0, x0,
+      [&](int ch, int gy, int gx, int zz) {
+        const int gz = z0 * SZ + zz - KZ / 2;
+        return gz >= 0 && gz < Z
+                   ? activate(x, scale, bias,
+                              x_b + (((int64_t)gy * X + gx) * Z + gz) * ci + ch, ch, relu)
+                   : 0.f;
+      },
+      [&](int tap, int ch, int o) {
+        return to_f(w[((int64_t)tap * ci + ch) * co + cg * kCO + o]);
+      });
 
   const int oy = y0 + ty, ox = x0 + tx, oz = z0 + tz;
-  if (oy < Y && ox < X && oz < Zo) {
+  const bool valid = oy < Y && ox < X && oz < Zo;
+  if (valid) {
     const int64_t o_off = ((((int64_t)b * Y + oy) * X + ox) * Zo + oz) * co + cg * kCO;
     store16(out + o_off, acc);
   }
+  if (STATS) {
+    __shared__ float s_red[kThreads];
+    float v[2 * kCO];
+#pragma unroll
+    for (int o = 0; o < kCO; ++o) {
+      const float r = valid ? round_to<T>(acc[o]) : 0.f;
+      v[o] = r;
+      v[kCO + o] = r * r;
+    }
+    const int64_t n_tiles = (int64_t)gridDim.x * gridDim.y * (gridDim.z / n_cg);
+    const int64_t tile = ((int64_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    block_sums32(v, s_red, partial + (cg * n_tiles + tile) * 32);
+  }
+}
+
+dim3 conv_grid(int B, int Y, int X, int Zo, int co, int* TX) {
+  *TX = tile_x(X);
+  const int TY = kTYX / *TX;
+  return dim3(((Zo + kTZ - 1) / kTZ) * ((X + *TX - 1) / *TX), (Y + TY - 1) / TY,
+              B * (co / kCO));
 }
 
 template <typename T, int KY, int KX, int KZ, int SZ>
 int launch(const void* x, const void* scale, const void* bias, const void* w,
-           void* out, int B, int Y, int X, int Z, int Zo, int ci, int co,
-           int relu, cudaStream_t stream) {
-  int TX = 1;
-  while (TX < kTYX && TX < X) TX *= 2;
-  const int TY = kTYX / TX;
-  dim3 grid(((Zo + kTZ - 1) / kTZ) * ((X + TX - 1) / TX), (Y + TY - 1) / TY,
-            B * (co / kCO));
-  fused_conv_kernel<T, KY, KX, KZ, SZ><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(scale),
-      static_cast<const T*>(bias), static_cast<const T*>(w),
-      static_cast<T*>(out), Y, X, Z, Zo, ci, co, TX, relu);
+           void* out, float* s1, float* s2, float* work, int B, int Y, int X,
+           int Z, int Zo, int ci, int co, int relu, cudaStream_t stream) {
+  int TX;
+  const dim3 grid = conv_grid(B, Y, X, Zo, co, &TX);
+  const T* xp = static_cast<const T*>(x);
+  const T* sp = static_cast<const T*>(scale);
+  const T* bp = static_cast<const T*>(bias);
+  const T* wp = static_cast<const T*>(w);
+  T* op = static_cast<T*>(out);
+  if (s1 == nullptr) {
+    fused_conv_kernel<T, KY, KX, KZ, SZ, false><<<grid, kThreads, 0, stream>>>(
+        xp, sp, bp, wp, op, nullptr, Y, X, Z, Zo, ci, co, TX, relu);
+    return (int)cudaGetLastError();
+  }
+  fused_conv_kernel<T, KY, KX, KZ, SZ, true><<<grid, kThreads, 0, stream>>>(
+      xp, sp, bp, wp, op, work, Y, X, Z, Zo, ci, co, TX, relu);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const int n_tiles = grid.x * grid.y * B;
+  reduce_sums32<<<co / kCO, kReduceThreads, 0, stream>>>(work, n_tiles, s1, s2);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int ky, int kx, int kz, int sz, const void* x, const void* scale,
-             const void* bias, const void* w, void* out, int B, int Y, int X,
-             int Z, int Zo, int ci, int co, int relu, cudaStream_t s) {
+             const void* bias, const void* w, void* out, float* s1, float* s2,
+             float* work, int B, int Y, int X, int Z, int Zo, int ci, int co,
+             int relu, cudaStream_t s) {
   const int key = ((ky * 4 + kx) * 4 + kz) * 4 + sz;
 #define MMF_CASE(KY, KX, KZ, SZ)                                             \
   if (key == ((KY * 4 + KX) * 4 + KZ) * 4 + SZ)                              \
-    return launch<T, KY, KX, KZ, SZ>(x, scale, bias, w, out, B, Y, X, Z, Zo, \
-                                     ci, co, relu, s);
+    return launch<T, KY, KX, KZ, SZ>(x, scale, bias, w, out, s1, s2, work,   \
+                                     B, Y, X, Z, Zo, ci, co, relu, s);
   MMF_CASE(1, 3, 3, 1)
   MMF_CASE(3, 1, 1, 1)
   MMF_CASE(1, 1, 1, 1)
@@ -211,23 +155,39 @@ int dispatch(int ky, int kx, int kz, int sz, const void* x, const void* scale,
 
 }  // namespace
 
+// Bytes of scratch that mmf_fused_conv needs for its stats partials.
+extern "C" unsigned long long mmf_fused_conv_work_bytes(int B, int Y, int X,
+                                                       int Zo, int co) {
+  int TX;
+  const dim3 grid = conv_grid(B, Y, X, Zo, co, &TX);
+  return (unsigned long long)grid.x * grid.y * grid.z * 32 * sizeof(float);
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  scale and bias are both NULL (identity)
 // or both per-input-channel vectors.
 // Shapes: x (B, Y, X, Z, ci), w (ky, kx, kz, ci, co), out (B, Y, X, Zo, co),
-// all contiguous.  Requires ci % 8 == 0 and co % 16 == 0.  Returns the
-// cudaGetLastError() of the launch (0 on success).
+// all contiguous.  Requires ci % 8 == 0 and co % 16 == 0.  s1, s2 (fp32, co)
+// and work (mmf_fused_conv_work_bytes) are all NULL, or all given for the
+// stats instance.  Returns the cudaGetLastError() of the launches (0 on
+// success).
 extern "C" int mmf_fused_conv(int dtype, int ky, int kx, int kz, int sz,
                               const void* x, const void* scale,
                               const void* bias, const void* w, void* out,
-                              int B, int Y, int X, int Z, int Zo, int ci,
-                              int co, int relu, void* stream) {
+                              void* s1, void* s2, void* work, int B, int Y,
+                              int X, int Z, int Zo, int ci, int co, int relu,
+                              void* stream) {
   if (ci % kCI != 0 || co % kCO != 0) return (int)cudaErrorInvalidValue;
+  if ((s1 == nullptr) != (s2 == nullptr) || (s1 == nullptr) != (work == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* f1 = static_cast<float*>(s1);
+  float* f2 = static_cast<float*>(s2);
+  float* wk = static_cast<float*>(work);
   if (dtype == 0)
-    return dispatch<float>(ky, kx, kz, sz, x, scale, bias, w, out, B, Y, X, Z,
-                           Zo, ci, co, relu, s);
+    return dispatch<float>(ky, kx, kz, sz, x, scale, bias, w, out, f1, f2, wk,
+                           B, Y, X, Z, Zo, ci, co, relu, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(ky, kx, kz, sz, x, scale, bias, w, out, B,
-                                   Y, X, Z, Zo, ci, co, relu, s);
+    return dispatch<__nv_bfloat16>(ky, kx, kz, sz, x, scale, bias, w, out, f1,
+                                   f2, wk, B, Y, X, Z, Zo, ci, co, relu, s);
   return (int)cudaErrorInvalidValue;
 }

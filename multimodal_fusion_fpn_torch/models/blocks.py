@@ -1,4 +1,4 @@
-"""Conv blocks of the port, in eval mode, on channels-last tensors.
+"""Conv blocks of the port on channels-last tensors, in eval and train mode.
 
 Counterparts of ``multimodal_fusion_fpn_tpu/models/blocks.py``:
 
@@ -16,8 +16,15 @@ Parameters keep the original project's state-dict names and torch shapes
 (``convBlock.<i>.0.weight``, ``convBlock.<i>.1.running_var``,
 ``downsample.0.weight``, ...); 2D convs keep their 2D shapes.  Weights stay
 fp32 and are cast to the compute dtype per call; the folded BN affine is
-computed in fp32 and then cast.  Training is not ported: a BatchNorm in
-training mode raises.
+computed in fp32 and then cast.
+
+BatchNorm in training (``_BNFold`` / ``TorchBatchNorm``,
+``blocks.py:288-371``) normalises with the batch mean and the BIASED batch
+variance ``E[y^2] - E[y]^2`` of the conv output y, both from fp32 sums:
+the kernel's stats epilogue for a fused conv, plain sums otherwise.  It
+updates ``running_mean``/``running_var`` with momentum 0.1 (flax's 0.9),
+the var UNBIASED (x n/(n-1)) as torch's BatchNorm3d does, and counts
+``num_batches_tracked``.
 
 Which convs run the hand-written kernel (``ops.fused_conv``) when
 ``kernels`` is True mirrors where the JAX package runs its Pallas kernel:
@@ -29,6 +36,7 @@ convs, the decoder and ``final1`` run the plain version (cuDNN on the
 card), as they run XLA convolutions in the JAX package.
 """
 
+
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -36,11 +44,16 @@ import torch
 from torch import nn
 
 from multimodal_fusion_fpn_torch.ops.fused_conv import (affine_relu,
+                                                        channel_sums,
                                                         conv3d_cl,
                                                         fused_conv)
 from multimodal_fusion_fpn_torch.ops.upsample import upsample_nearest
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1     # torch's convention; flax's 0.9 keeps the running value
+# Stages and cascades of at most this many channels take the kernels (the
+# JAX package's fused Pallas lowering, ``blocks.fused_stage_bs``).
+FUSED_MAX_CHANNELS = 64
 # std of a unit normal truncated to [-2, 2] (flax's truncated_normal)
 _TRUNC_STD = 0.87962566103423978
 
@@ -100,9 +113,10 @@ class Conv1x1(nn.Module):
 
 
 class BNFold(nn.Module):
-    """Eval BatchNorm that returns its folded affine instead of applying
-    it: ``s = weight / sqrt(running_var + eps)``, ``b = bias -
-    running_mean * s`` (``_BNFold``, ``blocks.py:288-329``).  Buffers as
+    """BatchNorm that returns its folded affine instead of applying it:
+    ``s = weight / sqrt(var + eps)``, ``b = bias - mean * s``
+    (``_BNFold``, ``blocks.py:288-329``), with the running stats in eval
+    and the batch stats of ``y`` in training (module note).  Buffers as
     ``torch.nn.BatchNorm3d`` names them, so checkpoints load."""
 
     def __init__(self, c: int):
@@ -125,12 +139,27 @@ class BNFold(nn.Module):
             self.running_var.fill_(1.0)
             self.num_batches_tracked.zero_()
 
-    def folded(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet; call .eval()")
-        s = self.weight * torch.rsqrt(self.running_var + BN_EPS)
-        b = self.bias - self.running_mean * s
+    def folded(self, dtype: torch.dtype, y: Optional[torch.Tensor] = None,
+               sums=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(s, b) in ``dtype``.  In training ``y`` is the conv output and
+        ``sums`` its fp32 per-channel (sum y, sum y*y), or None for plain
+        sums; the running stats are updated in place."""
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            s1, s2 = channel_sums(y) if sums is None else sums
+            n = y.numel() // y.shape[-1]
+            mean = s1 / n
+            var = s2 / n - mean * mean
+            with torch.no_grad():
+                unbiased = var * (n / (n - 1)) if n > 1 else var
+                self.running_mean.mul_(1 - BN_MOMENTUM).add_(
+                    BN_MOMENTUM * mean)
+                self.running_var.mul_(1 - BN_MOMENTUM).add_(
+                    BN_MOMENTUM * unbiased)
+                self.num_batches_tracked += 1
+        s = self.weight * torch.rsqrt(var + BN_EPS)
+        b = self.bias - mean * s
         return s.to(dtype), b.to(dtype)
 
 
@@ -167,29 +196,35 @@ class ConvX(nn.Module):
         self.fused = fused
 
     def _conv(self, x, s, b, w, relu, stride_z, kernels):
+        """-> (y, sums): in training a fused conv also returns the fp32
+        (sum y, sum y*y) of its stats epilogue; otherwise sums is None."""
         ci = w.shape[3]
         if kernels and self.fused and ci >= 8 and self.padding == "same":
-            return fused_conv(x, s, b, w, relu, stride_z)
+            if self.training:
+                y, s1, s2 = fused_conv(x, s, b, w, relu, stride_z,
+                                       with_stats=True)
+                return y, (s1, s2)
+            return fused_conv(x, s, b, w, relu, stride_z), None
         pad = ((0, 0, 0) if self.padding == "valid"
                else tuple(k // 2 for k in w.shape[:3]))
         return conv3d_cl(affine_relu(x, s, b, relu), w, (1, 1, stride_z),
-                         pad)
+                         pad), None
 
     def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         dt = x.dtype
         cur, s, b = x, None, None
         for i, (conv, bn) in enumerate(self.convBlock):
-            cur = self._conv(cur, s, b, conv.logical(dt), i > 0,
-                             self.stride_z, kernels)
-            s, b = bn.folded(dt)
+            cur, sums = self._conv(cur, s, b, conv.logical(dt), i > 0,
+                                   self.stride_z, kernels)
+            s, b = bn.folded(dt, cur, sums)
         out = cur * s + b
         if self.residual:
             if self.downsample is not None:
                 conv, bn = self.downsample
-                ds = self._conv(x, None, None, conv.logical(dt), False,
-                                self.ds_stride_z,
-                                kernels and self.ds_stride_z == 1)
-                sd, bd = bn.folded(dt)
+                ds, sums = self._conv(x, None, None, conv.logical(dt), False,
+                                      self.ds_stride_z,
+                                      kernels and self.ds_stride_z == 1)
+                sd, bd = bn.folded(dt, ds, sums)
                 out = out + ds * sd + bd
             else:
                 out = out + x
@@ -206,7 +241,7 @@ class EncoderStage(nn.ModuleList):
             k_a, k_b = ((1, 3, 3),) * 2, ((1, 3, 3),) * 2 + ((3, 1, 1),)
         else:
             k_a, k_b = ((1, 3),) * 2, ((1, 3),) * 2 + ((3, 1),)
-        fused = co <= 64
+        fused = co <= FUSED_MAX_CHANNELS
         super().__init__([
             ConvX(ci, co, k_a, downsample=ci != co, fused=fused),
             ConvX(co, co, k_b, fused=fused)])
@@ -233,7 +268,7 @@ class ZDimReduction(nn.ModuleList):
         else:
             red = ConvX(c, c, ((1, 1, 3),) * num_reductions, stride_z=2,
                         downsample=True, ds_stride_z=2 ** num_reductions,
-                        fused=c <= 64)
+                        fused=c <= FUSED_MAX_CHANNELS)
             super().__init__([red, fully])
 
     def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:

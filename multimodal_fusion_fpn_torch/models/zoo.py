@@ -3,8 +3,9 @@
 
 The model takes the batch dict in the original project's layout and
 returns ``{'prediction': sigmoid(logits)}`` in that layout
-(:mod:`.layouts`).  ``kernels`` chooses the hand-written kernels (True) or
-their plain PyTorch versions (False); nothing switches it automatically.
+(:mod:`.layouts`), in eval or train mode (BatchNorm batch stats).
+``kernels`` chooses the hand-written kernels (True) or their plain PyTorch
+versions (False); nothing switches it automatically.
 """
 
 import os
@@ -45,9 +46,6 @@ class FPNHybridFusion(nn.Module):
         self.resensnet = ModifiedUnet3D2D(spec, n_classes, interpolate)
 
     def forward(self, batch, kernels: bool = True):
-        if self.training:
-            raise NotImplementedError(
-                "training is not ported yet; call .eval() first")
         oct = volume_to_device(batch["image"].to(self.dtype))
         enface = enface_to_device(batch[self.fusion_modality].to(self.dtype))
         seg = seg_from_device(self.resensnet(oct, enface, kernels))

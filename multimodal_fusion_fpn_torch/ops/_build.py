@@ -38,8 +38,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, keyed by the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(SRC_DIR) if n.endswith(".cuh"))
+    for src in [name + ".cu"] + headers:
+        with open(os.path.join(SRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -104,3 +104,160 @@ def test_fused_conv_kernel_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         tfc.fused_conv(x.transpose(1, 2), None, None,
                        torch.randn(1, 3, 3, 8, 16, device="cuda"), False)
+
+
+# --- training: the stats epilogue, the backward kernels, the pool backward --
+
+def _conv_args(gen, shape, taps, stride_z, affine, dtype, co=32):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    ci = shape[-1]
+    x = rnd(*shape).to(dtype)
+    s = (0.5 + rnd(ci).abs()).to(dtype) if affine else None
+    b = (0.5 * rnd(ci)).to(dtype) if affine else None
+    w = (rnd(*taps, ci, co) * 0.2).to(dtype)
+    zo = (shape[3] - 1) // stride_z + 1
+    g = rnd(*shape[:3], zo, co).to(dtype)
+    return x, s, b, w, g, rnd(co), 0.01 * rnd(co)
+
+
+# the conv cases the backward kernels take (ci % 16 == 0)
+BWD_CASES = [c for c in CONV_CASES if c[0][-1] % 16 == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,taps,stride_z", CONV_CASES)
+def test_fused_conv_stats_kernel_matches_plain(gen, shape, taps, stride_z,
+                                               dtype):
+    """The stats epilogue: y as without it, (s1, s2) the fp32 sums of the
+    kernel's rounded y, and two runs bitwise equal (no float atomics)."""
+    x, s, b, w, _, _, _ = _conv_args(gen, shape, taps, stride_z, True, dtype)
+    name = ("fused_conv_ky3" if taps[0] == 3 else "fused_conv") + "_stats"
+    before = tfc.launches[name]
+    y, s1, s2 = tfc.fused_conv(x, s, b, w, True, stride_z, with_stats=True)
+    again = tfc.fused_conv(x, s, b, w, True, stride_z, with_stats=True)
+    torch.cuda.synchronize()
+    assert tfc.launches[name] == before + 2
+    assert s1.dtype == s2.dtype == torch.float32
+    assert torch.equal(y, tfc.fused_conv(x, s, b, w, True, stride_z))
+    for a, c in zip((y, s1, s2), again):
+        assert torch.equal(a, c)
+    r1, r2 = tfc.channel_sums(y)
+    _assert_close(s1, r1, torch.float32)
+    _assert_close(s2, r2, torch.float32)
+    ref = tfc.fused_conv_plain(x, s, b, w, True, stride_z, with_stats=True)
+    for a, c in zip((y, s1, s2), ref):
+        _assert_close(a, c, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("stats", [False, True], ids=["g", "g+stats"])
+@pytest.mark.parametrize("affine,relu", [(True, True), (False, False),
+                                         (True, False)])
+@pytest.mark.parametrize("shape,taps,stride_z", BWD_CASES)
+def test_fused_conv_bwd_kernels_match_plain(gen, shape, taps, stride_z,
+                                            affine, relu, stats, dtype):
+    """dx, ds, db (dgrad) and dw (wgrad) against the plain backward, with
+    and without the stats cotangent; two runs bitwise equal."""
+    x, s, b, w, g, gs1, gs2 = _conv_args(gen, shape, taps, stride_z, affine,
+                                         dtype)
+    cot = None
+    if stats:
+        y = tfc.fused_conv(x, s, b, w, relu, stride_z)
+        cot = (y, gs1, gs2)
+    k3 = "fused_conv_ky3" if taps[0] == 3 else "fused_conv"
+    before = (tfc.launches[k3 + "_dgrad"], tfc.launches[k3 + "_wgrad"])
+    got = tfc.fused_conv_bwd(x, s, b, w, g, relu, stride_z, cot)
+    again = tfc.fused_conv_bwd(x, s, b, w, g, relu, stride_z, cot)
+    torch.cuda.synchronize()
+    assert (tfc.launches[k3 + "_dgrad"],
+            tfc.launches[k3 + "_wgrad"]) == (before[0] + 2, before[1] + 2)
+    ref = tfc.fused_conv_bwd_plain(x, s, b, w, g, relu, stride_z, cot)
+    for name, a, c, r in zip(("dx", "ds", "db", "dw"), got, again, ref):
+        if r is None:
+            assert a is None, name
+            continue
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert torch.equal(a, c), name
+        _assert_close(a, r, dtype if name in ("dx", "dw") else
+                      torch.float32 if dtype == torch.float32 else dtype)
+
+
+@pytest.mark.cuda
+def test_fused_conv_autograd_launches_the_backward_kernels(gen):
+    x, s, b, w, g, gs1, gs2 = _conv_args(gen, (1, 4, 8, 40, 16), (1, 3, 3),
+                                         1, True, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (x, s, b, w)]
+    before = dict(tfc.launches)
+    y, s1, s2 = tfc.fused_conv(*leaves, True, with_stats=True)
+    ((y * g).sum() + (s1 * gs1).sum() + (s2 * gs2).sum()).backward()
+    torch.cuda.synchronize()
+    for k in ("fused_conv_stats", "fused_conv_dgrad", "fused_conv_wgrad"):
+        assert tfc.launches[k] == before[k] + 1, k
+    ref = tfc.fused_conv_bwd_plain(x, s, b, w, g, True, 1,
+                                   (y.detach(), gs1, gs2))
+    for leaf, r in zip(leaves, ref):
+        _assert_close(leaf.grad, r, torch.float32)
+
+
+@pytest.mark.cuda
+def test_fused_conv_bwd_refuses_what_it_does_not_take(gen):
+    x, s, b, w, g, gs1, gs2 = _conv_args(gen, (1, 2, 3, 8, 8), (1, 3, 3), 1,
+                                         True, torch.float32, co=16)
+    with pytest.raises(ValueError, match="ci % 16"):
+        tfc.fused_conv_bwd(x, s, b, w, g, True)
+    with pytest.raises(ValueError, match="ci % 16"):
+        tfc.fused_conv(x.requires_grad_(), s, b, w, True)
+    x, s, b, w, g, gs1, gs2 = _conv_args(gen, (1, 2, 3, 8, 16), (1, 3, 3), 1,
+                                         True, torch.float32, co=16)
+    with pytest.raises(ValueError, match="g must be"):
+        tfc.fused_conv_bwd(x, s, b, w, g[..., :4, :], True)
+    with pytest.raises(ValueError, match="gs1 must be"):
+        tfc.fused_conv_bwd(x, s, b, w, g, True, 1,
+                           (g, gs1.to(torch.bfloat16), gs2))
+
+
+def _tied(gen, shape, dtype):
+    """Values on a coarse grid, so windows hold exact ties, with +0 and -0
+    both present."""
+    v = torch.randint(-2, 3, shape, generator=gen, device="cuda").float()
+    v = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5,
+                    v, -v)
+    return v.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("window", [(1, 2, 2), (2, 2, 2), (1, 1, 2),
+                                    (2, 1, 2)])
+def test_max_pool_bwd_kernel_matches_plain_on_ties(gen, window, dtype):
+    """K5b: g to every tied max (+0 == -0), 0 beyond the floor-sized
+    region; exact.  The autograd Function launches it."""
+    x = _tied(gen, (2, 5, 9, 63, 16), dtype)
+    y = tpool.max_pool3d_cl(x, window)
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    before = tpool.launches["max_pool3d_cl_bwd"]
+    dx = tpool.max_pool3d_cl_bwd(x, y, g, window)
+    xg = x.clone().requires_grad_()
+    tpool.max_pool3d_cl(xg, window).backward(g)
+    torch.cuda.synchronize()
+    assert tpool.launches["max_pool3d_cl_bwd"] == before + 2
+    ref = tpool.max_pool3d_cl_bwd_plain(x, y, g, window)
+    assert torch.equal(dx, ref) and torch.equal(xg.grad, ref)
+    # ties really occur: some window gives its g to more than one element
+    assert (dx != 0).sum() > (g != 0).sum()
+
+
+@pytest.mark.cuda
+def test_max_pool_first_max_backward_matches_torch(gen):
+    """The stage-4 rule: g to the first max in (Y, X, Z) order, as
+    F.max_pool3d's backward gives it."""
+    x = _tied(gen, (2, 4, 6, 16, 128), torch.float32)
+    g = torch.randn(2, 2, 3, 8, 128, generator=gen, device="cuda")
+    xg = x.clone().requires_grad_()
+    tpool.max_pool3d_cl(xg, (2, 2, 2), first_max=True).backward(g)
+    xt = x.permute(0, 4, 1, 2, 3).clone().requires_grad_()
+    torch.nn.functional.max_pool3d(xt, (2, 2, 2)).backward(
+        g.permute(0, 4, 1, 2, 3))
+    assert torch.equal(xg.grad, xt.grad.permute(0, 2, 3, 4, 1))

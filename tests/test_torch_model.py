@@ -214,8 +214,10 @@ def test_state_dict_round_trips_through_torch_import(hybrid_weights):
 def test_kernel_routing_counts_per_member(monkeypatch):
     """Which calls take the kernels on the main path, counted on the CPU
     by spies on the wrappers: per member 35 (1,*,*) fused convs (3D and
-    2D stages 13 + 13, cascades 4 + 3 + 2), 6 (3,1,1) convs and 8 pools."""
-    seen = {"k1": 0, "k2": 0, "pool": 0}
+    2D stages 13 + 13, cascades 4 + 3 + 2), 6 (3,1,1) convs and 8 pools,
+    of which the two 128-channel stage-4 pools take the first-max
+    backward rule."""
+    seen = {"k1": 0, "k2": 0, "pool": 0, "first_max": 0}
     real_conv, real_pool = tblocks.fused_conv, tenc.max_pool3d_cl
 
     def conv_spy(x, s, b, w, relu, stride_z=1):
@@ -223,9 +225,10 @@ def test_kernel_routing_counts_per_member(monkeypatch):
         assert w.shape[3] >= 8 and w.shape[4] <= 64
         return real_conv(x, s, b, w, relu, stride_z)
 
-    def pool_spy(x, window):
+    def pool_spy(x, window, first_max=False):
         seen["pool"] += 1
-        return real_pool(x, window)
+        seen["first_max"] += first_max
+        return real_pool(x, window, first_max)
 
     monkeypatch.setattr(tblocks, "fused_conv", conv_spy)
     monkeypatch.setattr(tenc, "max_pool3d_cl", pool_spy)
@@ -233,19 +236,11 @@ def test_kernel_routing_counts_per_member(monkeypatch):
     batch = {k: torch.from_numpy(v) for k, v in _batch(3).items()}
     with torch.no_grad():
         model(batch)
-    assert seen == {"k1": 35, "k2": 6, "pool": 8}
-    seen.update(k1=0, k2=0, pool=0)
+    assert seen == {"k1": 35, "k2": 6, "pool": 8, "first_max": 2}
+    seen.update(k1=0, k2=0, pool=0, first_max=0)
     with torch.no_grad():
         model(batch, kernels=False)
-    assert seen == {"k1": 0, "k2": 0, "pool": 0}
-
-
-def test_training_mode_raises():
-    model = build_model(_cfg("relative_2d_max"), device="cpu").train()
-    with pytest.raises(NotImplementedError):
-        model({k: torch.from_numpy(v) for k, v in _batch().items()})
-    with pytest.raises(NotImplementedError):
-        tblocks.BNFold(4).train().folded(torch.float32)
+    assert seen == {"k1": 0, "k2": 0, "pool": 0, "first_max": 0}
 
 
 def test_init_state_dict_is_seeded():

@@ -11,12 +11,14 @@ kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
 import ast
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from flax import linen as nn
 
+from multimodal_fusion_fpn_tpu.models import blocks as jblocks
 from multimodal_fusion_fpn_tpu.ops import interpolate as jinterp
 from multimodal_fusion_fpn_tpu.ops import pooling as jpooling
 from multimodal_fusion_fpn_tpu.ops import upsample as jupsample
@@ -145,6 +147,210 @@ def test_stride2_odd_depth_length():
     assert got.shape[3] == 16
 
 
+# --- training: the stats epilogue and the backward (K3, K4, K6) ------------
+#
+# The JAX side is ``fused_conv`` / ``fused_conv_strided`` (out_stats) on a
+# dense packed input; its per-lane (1, bs*co) stats are summed to
+# per-channel inside the differentiated function, so the per-channel
+# cotangents (gs1, gs2) apply to both sides as they are.
+
+def _assert_rel(got, ref, what=""):
+    """max|got - ref| <= 1e-4 * max|ref| (the fp32 tolerance)."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    err = np.abs(got - ref).max()
+    assert err <= 1e-4 * max(np.abs(ref).max(), 1e-30), (what, err,
+                                                          np.abs(ref).max())
+
+
+def _jax_conv_fn(X, Z, bs, relu, stride_z, stats, impl):
+    """f(x, s, b, w) -> y (B, Y, X, Zo, co) [, s1, s2 per channel]."""
+    nb = Z // bs
+
+    def f(x, s, b, w):
+        tile = lambda v: None if v is None else jnp.tile(v, bs)
+        args = ([jfc.pack(x, bs)], [tile(s)], [tile(b)], w, X, nb, bs)
+        if stride_z == 1:
+            out = jfc.fused_conv(*args, relu=relu, impl=impl,
+                                 out_stats=stats)
+        else:
+            out = jfc.fused_conv_strided(*args, valid_in=bs, relu=relu,
+                                         impl=impl, out_stats=stats)
+        y = out[0] if stats else out
+        y = (jfc.unpack(y, X, nb, bs) if stride_z == 1
+             else jfc.unpack_slots(y, X, nb, bs, bs // 2))
+        if not stats:
+            return y
+        return (y, out[1].reshape(bs, -1).sum(0),
+                out[2].reshape(bs, -1).sum(0))
+    return f
+
+
+def _jax_conv_vjp(x, s, b, w, cot, X, Z, bs, relu, stride_z, stats, impl):
+    """(y, s1, s2, dx, ds, db, dw) of the JAX fused conv, numpy."""
+    f = _jax_conv_fn(X, Z, bs, relu, stride_z, stats, impl)
+    affine = s is not None
+    args = [jnp.asarray(x), jnp.asarray(w)]
+    if affine:
+        args += [jnp.asarray(s), jnp.asarray(b)]
+        fa = lambda x_, w_, s_, b_: f(x_, s_, b_, w_)
+    else:
+        fa = lambda x_, w_: f(x_, None, None, w_)
+    out, pull = jax.vjp(fa, *args)
+    cot = tuple(jnp.asarray(c) for c in cot) if stats else jnp.asarray(cot[0])
+    grads = [np.asarray(a) for a in pull(cot)]
+    out = [np.asarray(o) for o in (out if stats else (out,))]
+    y, s1, s2 = (out + [None, None])[:3]
+    dx, dw = grads[:2]
+    ds, db = grads[2:] if affine else (None, None)
+    return y, s1, s2, dx, ds, db, dw
+
+
+# (taps, z stride): the (1,3,3) stage conv, the 2D (1,3) / 3D (1,1,3) convs,
+# the stride-2 cascade conv, the 1x1x1 downsample and the (3,1,1) conv (K4)
+BWD_CASES = [((1, 3, 3), 1), ((1, 1, 3), 1), ((1, 1, 3), 2), ((1, 1, 1), 1),
+             ((3, 1, 1), 1)]
+
+
+def _bwd_inputs(kshape, stride_z, affine, seed, Z=16):
+    B, Y, X, ci, co = 1, 4, 4, 8, 16
+    x, s, b, w = _conv_inputs(B, Y, X, Z, ci, co, kshape, affine, seed)
+    rng = np.random.default_rng(seed + 100)
+    Zo = (Z - 1) // stride_z + 1
+    g = rng.normal(size=(B, Y, X, Zo, co)).astype(np.float32)
+    gs1 = rng.normal(size=(co,)).astype(np.float32)
+    gs2 = (0.1 * rng.normal(size=(co,))).astype(np.float32)
+    return x, s, b, w, g, gs1, gs2
+
+
+def _port_bwd(x, s, b, w, g, gs1, gs2, relu, stride_z, stats):
+    """The port's (y, s1, s2, dx, ds, db, dw) twice: fused_conv_bwd_plain,
+    and autograd through the FusedConv Function."""
+    t = [_t(a) for a in (x, s, b, w, g, gs1, gs2)]
+    x_, s_, b_, w_, g_, gs1_, gs2_ = t
+    y, s1, s2 = tfc.fused_conv(x_, s_, b_, w_, relu, stride_z,
+                               with_stats=True)
+    cot = (y, gs1_, gs2_) if stats else None
+    plain = tfc.fused_conv_bwd_plain(x_, s_, b_, w_, g_, relu, stride_z, cot)
+    leaves = [a.clone().requires_grad_() if a is not None else None
+              for a in (x_, s_, b_, w_)]
+    out = tfc.fused_conv(*leaves, relu, stride_z, with_stats=stats)
+    loss = ((out[0] * g_).sum() + (out[1] * gs1_).sum()
+            + (out[2] * gs2_).sum()) if stats else (out * g_).sum()
+    need = [a for a in leaves if a is not None]
+    got = iter(torch.autograd.grad(loss, need))
+    auto = [next(got) if a is not None else None for a in leaves]
+    auto = (auto[0], auto[1], auto[2], auto[3])
+    return (y, s1, s2), plain, auto
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("stats", [False, True], ids=["g", "g+stats"])
+@pytest.mark.parametrize("affine,relu", [(True, True), (False, False)],
+                         ids=["affine_relu", "identity"])
+@pytest.mark.parametrize("kshape,stride_z", BWD_CASES,
+                         ids=lambda c: "".join(map(str, c))
+                         if isinstance(c, tuple) else f"s{c}")
+def test_fused_conv_bwd_matches_jax_vjp(kshape, stride_z, affine, relu,
+                                        stats, impl, request):
+    """dx, ds, db, dw of the plain backward and of the autograd Function
+    against jax.vjp of the JAX fused conv (the XLA reference, or the Pallas
+    merged backward K3/K4 in interpret mode), with and without the stats
+    cotangent; the stats forward against ``out_stats``."""
+    if impl == "pallas":
+        request.getfixturevalue("interpret")
+    x, s, b, w, g, gs1, gs2 = _bwd_inputs(kshape, stride_z, affine,
+                                          seed=sum(kshape) + 3 * stride_z
+                                          + 5 * affine + 7 * stats)
+    ref = _jax_conv_vjp(x, s, b, w, (g, gs1, gs2), 4, 16, 8, relu,
+                        stride_z, stats, impl)
+    fwd, plain, auto = _port_bwd(x, s, b, w, g, gs1, gs2, relu, stride_z,
+                                 stats)
+    _assert_rel(fwd[0].numpy(), ref[0], "y")
+    if stats:
+        _assert_rel(fwd[1].numpy(), ref[1], "s1")
+        _assert_rel(fwd[2].numpy(), ref[2], "s2")
+    for name, i in (("dx", 3), ("ds", 4), ("db", 5), ("dw", 6)):
+        for how, got in (("plain", plain), ("autograd", auto)):
+            j = i - 3
+            if ref[i] is None:
+                assert got[j] is None, (how, name)
+            else:
+                _assert_rel(got[j].detach().numpy(), ref[i], f"{how} {name}")
+
+
+@pytest.mark.parametrize("kshape,stride_z", BWD_CASES,
+                         ids=lambda c: "".join(map(str, c))
+                         if isinstance(c, tuple) else f"s{c}")
+def test_split_wgrad_matches_jax_dband_kernel(kshape, stride_z, interpret,
+                                              monkeypatch):
+    """K6: with MMF_MERGED_BWD=0 the JAX backward takes the split path,
+    whose weight cotangent comes from ``_dband_pallas`` (``_dband_kernel``
+    / ``_yck_dband_kernel``) in interpret mode; the port's dw (the wgrad
+    function) must agree, with the stats cotangent folded in."""
+    monkeypatch.setenv("MMF_MERGED_BWD", "0")
+    x, s, b, w, g, gs1, gs2 = _bwd_inputs(kshape, stride_z, True,
+                                          seed=40 + sum(kshape) + stride_z)
+    ref = _jax_conv_vjp(x, s, b, w, (g, gs1, gs2), 4, 16, 8, True,
+                        stride_z, True, "pallas")
+    _, plain, auto = _port_bwd(x, s, b, w, g, gs1, gs2, True, stride_z,
+                               True)
+    for name, i in (("dx", 0), ("ds", 1), ("db", 2), ("dw", 3)):
+        _assert_rel(plain[i].numpy(), ref[3 + i], f"plain {name}")
+        _assert_rel(auto[i].numpy(), ref[3 + i], f"autograd {name}")
+
+
+@pytest.mark.parametrize("Z", [31, 32, 29])
+@pytest.mark.parametrize("stats", [False, True])
+def test_stride2_bwd_odd_depth_matches_torch_autograd(Z, stats):
+    """The stride-2 transposed conv at odd and even depths: the plain
+    backward and the Function against torch's own autograd of the plain
+    forward (z_in = 2 z_out + dz - 1)."""
+    x, s, b, w, g, gs1, gs2 = _bwd_inputs((1, 1, 3), 2, True, seed=Z,
+                                          Z=Z)
+    fwd, plain, auto = _port_bwd(x, s, b, w, g, gs1, gs2, True, 2, stats)
+    leaves = [_t(a).requires_grad_() for a in (x, s, b, w)]
+    y, s1, s2 = tfc.fused_conv_plain(*leaves, True, 2, with_stats=True)
+    loss = (y * _t(g)).sum()
+    if stats:
+        loss = loss + (s1 * _t(gs1)).sum() + (s2 * _t(gs2)).sum()
+    ref = torch.autograd.grad(loss, leaves)
+    for i, name in enumerate(("dx", "ds", "db", "dw")):
+        _assert_rel(plain[i].numpy(), ref[i].numpy(), f"plain {name}")
+        _assert_rel(auto[i].numpy(), ref[i].numpy(), f"autograd {name}")
+
+
+def test_fused_conv_bwd_bf16_close_to_fp32():
+    """bf16 backward: dw is rounded to bf16 like the JAX band cotangent;
+    every output agrees with the fp32 plain backward by cosine."""
+    x, s, b, w, g, gs1, gs2 = _bwd_inputs((1, 3, 3), 1, True, seed=3)
+    ref = tfc.fused_conv_bwd_plain(*(_t(a) for a in (x, s, b, w, g)), True)
+    bf = torch.bfloat16
+    got = tfc.fused_conv_bwd_plain(*(_t(a, bf) for a in (x, s, b, w, g)),
+                                   True)
+    assert got[0].dtype == got[3].dtype == bf
+    assert got[1].dtype == got[2].dtype == torch.float32
+    for a, r in zip(got, ref):
+        cos, ratio = _cos_norm(a.float().numpy(), r.numpy())
+        assert cos >= 0.999 and abs(ratio - 1) <= 0.01, (cos, ratio)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(ci=8), "ci % 16"),
+    (dict(g_shape=(1, 2, 3, 7, 16)), "g must be"),
+    (dict(gs_dtype=torch.bfloat16), "gs1 must be"),
+])
+def test_fused_conv_bwd_launch_checks(bad, match):
+    ci = bad.get("ci", 16)
+    x = torch.randn(1, 2, 3, 8, ci)
+    w = torch.randn(1, 3, 3, ci, 16)
+    g = torch.randn(*bad.get("g_shape", (1, 2, 3, 8, 16)))
+    gs = torch.randn(16, dtype=bad.get("gs_dtype", torch.float32))
+    with pytest.raises(ValueError, match=match):
+        tfc._check_bwd(x, w, 1, g, (torch.randn(1, 2, 3, 8, 16), gs, gs))
+
+
 # windows of the main path: 3D (1,2,2), (2,2,2); 2D (1,2), (2,2) as
 # (1,1,2), (2,1,2) on the singleton-X view
 @pytest.mark.parametrize("win", [(1, 2, 2), (2, 2, 2), (1, 1, 2),
@@ -164,6 +370,93 @@ def test_max_pool_matches_jax_pool_packed(win, dtype):
     np.testing.assert_array_equal(got.float().numpy(), ref)
 
 
+def _tied(shape, seed, signed_zero=True):
+    """Values on a coarse grid, so windows hold exact ties; with
+    ``signed_zero`` both +0 and -0 occur."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-2, 3, size=shape).astype(np.float32)
+    if signed_zero:
+        v = np.where(rng.random(shape) < 0.5, v, -v)
+    return v.astype(np.float32)
+
+
+def _port_pool_vjp(x, g, win, first_max=False):
+    """dx of the port's pool: the plain backward and the autograd Function
+    (both on CPU tensors)."""
+    xt, gt = torch.tensor(x), torch.tensor(g)
+    y = tpool.max_pool3d_cl(xt, win, first_max)
+    xg = xt.clone().requires_grad_()
+    tpool.max_pool3d_cl(xg, win, first_max).backward(gt)
+    plain = (tpool.max_pool3d_cl_bwd_first(xt, gt, win) if first_max
+             else tpool.max_pool3d_cl_bwd_plain(xt, y, gt, win))
+    return plain.numpy(), xg.grad.numpy()
+
+
+@pytest.mark.parametrize("win", [(1, 2, 2), (2, 2, 2), (1, 1, 2),
+                                 (2, 1, 2)])
+def test_max_pool_bwd_matches_jax_pool_packed_on_ties(win):
+    """K5b's rule: the Pallas pool's backward (``_bwd_row_kernel`` /
+    ``_bwd_kernel``, interpreted off-TPU) gives g to every tied max; the
+    port's plain backward and its Function agree exactly.  (Signed zeros:
+    next test.)"""
+    X = 1 if win[1] == 1 else 6
+    x = _tied((2, 4, X, 32, 16), seed=sum(win), signed_zero=False)
+    bs, nb = 8, 4
+    f = lambda v: jpool.pool_packed(jfc.pack(v, bs), X, nb, bs, win)
+    y, pull = jax.vjp(f, jnp.asarray(x))
+    g = np.random.default_rng(1).normal(size=y.shape).astype(np.float32)
+    ref = np.asarray(pull(jnp.asarray(g))[0])
+    assert np.count_nonzero(ref) > np.count_nonzero(g)  # ties occur
+    g_cl = np.asarray(jfc.unpack(jnp.asarray(g), X // win[1], nb,
+                                 bs // win[2]))
+    for got in _port_pool_vjp(x, g_cl, win):
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("win", [(2, 2, 2), (1, 1, 2)])
+def test_max_pool_bwd_signed_zero_ties_follow_tie_mask(win):
+    """+0 and -0 tie: the backward routes g by the Pallas kernel's
+    ``_tie_mask`` (fp32 bit patterns after ``+ 0.0``), evaluated here
+    eagerly.  Under jit XLA folds ``x + 0.0`` to ``x``, so the interpreted
+    kernel itself would split the two zeros; the rule is the eager one."""
+    x = _tied((2, 4, 6, 32, 16), seed=7 + sum(win))
+    y = tpool.max_pool3d_cl(torch.from_numpy(x), win)
+    g = np.random.default_rng(3).normal(size=y.shape).astype(np.float32)
+    B, Yo, Xo, Zo, C = y.shape
+    at = lambda t: np.asarray(t).reshape(B, Yo, 1, Xo, 1, Zo, 1, C)
+    xw = x[:, :Yo * win[0], :Xo * win[1], :Zo * win[2]].reshape(
+        B, Yo, win[0], Xo, win[1], Zo, win[2], C)
+    tie = np.asarray(jpool._tie_mask(jnp.asarray(xw), jnp.asarray(at(y))))
+    ref = np.where(tie, at(g), 0.0).reshape(x.shape).astype(np.float32)
+    signed = (x == 0) & np.signbit(x)
+    assert (ref[signed] != 0).any()  # some -0 takes g from a +0 max
+    for got in _port_pool_vjp(x, g, win):
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("win", [(1, 2, 2), (2, 2, 2)])
+def test_max_pool_first_max_bwd_matches_jax_reduce_window(win):
+    """The stage-4 rule: XLA's reduce_window max VJP (``blocks.max_pool``)
+    gives g to the first max in (Y, X, Z) window order only."""
+    x = _tied((2, 4, 6, 10, 128), seed=5 + sum(win))
+    y, pull = jax.vjp(lambda v: jblocks.max_pool(v, win), jnp.asarray(x))
+    g = np.random.default_rng(2).normal(size=y.shape).astype(np.float32)
+    ref = np.asarray(pull(jnp.asarray(g))[0])
+    assert np.count_nonzero(ref) == np.count_nonzero(g)
+    for got in _port_pool_vjp(x, g, win, first_max=True):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_max_pool_plain_backward_is_not_amax_split():
+    """An all-equal window: all ties give g to all 8 elements, first max to
+    element 0 only (``amax`` autograd would give each 1/8)."""
+    x = torch.zeros(1, 2, 2, 2, 1)
+    for first_max, want in ((False, [1.0] * 8), (True, [1.0] + [0.0] * 7)):
+        xg = x.clone().requires_grad_()
+        tpool.max_pool3d_cl_plain(xg, (2, 2, 2), first_max).sum().backward()
+        assert xg.grad.flatten().tolist() == want
+
+
 def test_max_pool_floor_sizes():
     x = torch.randn(1, 5, 7, 9, 4)
     got = tpool.max_pool3d_cl(x, (2, 2, 2))
@@ -174,17 +467,36 @@ def test_max_pool_floor_sizes():
 
 def test_cpu_wrappers_take_plain_path_and_count_nothing():
     ops.reset_launches()
-    x = torch.randn(1, 2, 3, 8, 8)
-    w = torch.randn(1, 3, 3, 8, 16)
-    s, b = torch.randn(8), torch.randn(8)
+    x = torch.randn(1, 2, 3, 8, 16)
+    w = torch.randn(1, 3, 3, 16, 16)
+    s, b = torch.randn(16), torch.randn(16)
     torch.testing.assert_close(tfc.fused_conv(x, s, b, w, True),
                                tfc.fused_conv_plain(x, s, b, w, True),
                                rtol=0, atol=0)
     torch.testing.assert_close(tpool.max_pool3d_cl(x, (1, 1, 2)),
                                tpool.max_pool3d_cl_plain(x, (1, 1, 2)),
                                rtol=0, atol=0)
-    assert ops.kernel_launches() == {"fused_conv": 0, "fused_conv_ky3": 0,
-                                     "max_pool3d_cl": 0}
+    y, s1, s2 = tfc.fused_conv(x, s, b, w, True, with_stats=True)
+    g = torch.randn_like(y)
+    for got, want in zip(
+            tfc.fused_conv_bwd(x, s, b, w, g, True),
+            tfc.fused_conv_bwd_plain(x, s, b, w, g, True)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    xp = tpool.max_pool3d_cl(x, (1, 1, 2))
+    torch.testing.assert_close(
+        tpool.max_pool3d_cl_bwd(x, xp, xp, (1, 1, 2)),
+        tpool.max_pool3d_cl_bwd_plain(x, xp, xp, (1, 1, 2)), rtol=0, atol=0)
+    # the autograd Functions on CPU tensors run the plain versions too
+    xg = x.clone().requires_grad_()
+    tfc.fused_conv(xg, s, b, w, True, with_stats=True)[1].sum().backward()
+    tpool.max_pool3d_cl(xg, (1, 1, 2)).sum().backward()
+    launches = ops.kernel_launches()
+    assert set(launches) == {
+        "fused_conv", "fused_conv_ky3", "fused_conv_stats",
+        "fused_conv_ky3_stats", "fused_conv_dgrad", "fused_conv_wgrad",
+        "fused_conv_ky3_dgrad", "fused_conv_ky3_wgrad", "max_pool3d_cl",
+        "max_pool3d_cl_bwd"}
+    assert not any(launches.values()), launches
     assert not tfc.calls and not tpool.calls
 
 
