@@ -61,11 +61,39 @@ Phases, each of which fails the run on any error:
    stats as above, gradients as a whole (cosine >= 0.9999, norm ratio
    within 1e-3).  Train images/s and the profiler as in phase 3; every
    train kernel's launch count must grow.
-6. A ``kernels`` JSON line (per kernel: launches in its path's step, the
-   ensemble step for the eval instances and the train step for the rest;
-   max-abs-err of its fp32 comparisons; per-step times summed over the
-   bf16 B=4 calls), the card line, and last the
-   ``{"ok": true, "device": ...}`` line.
+6. Bucketed serving, the default of ``validate_ensemble.py``, at whole
+   volumes: true OCT (D, H, W) (48, 496, 176) and en-face (208, 176),
+   zero-padded by ``bucket_pad(..., 64)`` to (48, 512, 192) and
+   (256, 192); bf16 at B=4 and fp32 at B=1.  (a) K7 (the extents instance
+   of the fused conv) against its plain version at every call shape of one
+   member's bucketed forward, on inputs random everywhere, so the padding
+   holds garbage that a leaking mask would read (the same conv without the
+   mask must differ), and K5f at the bucketed pool shapes; timings as in
+   phase 2, the library call being ``F.conv3d`` on the masked activated
+   input.  (b) The 5-member ensemble on the padded batch, cropped to the
+   true extent, against the same path on the unpadded batch, the kernel
+   path and ``kernels=False`` each: fp32 max-abs-err <= 1e-5 * max|y|,
+   bf16 cosine >= 0.9999 and norm ratio within 1% (on the prediction
+   centred at 0.5).  The kernel path against ``kernels=False`` on the
+   padded batch: fp32 the same; bf16 at phase 3's cosine >= 0.999 and
+   norm ratio within 1%, since the same comparison unpadded, printed
+   beside it, sits at about 0.9998 (bf16 rounds the kernels' and cuDNN's
+   convs at other places; bucketing adds nothing to that).  A planted
+   control, extents claiming the padded shape, must fail (b).  (c) The Hausdorff distances fused into the
+   step (``with_hd``) against the host scipy path on the card's cropped
+   mean prediction, per image (rel. 1e-5, hd95 1e-4, or both NaN).
+   (d) Serving rate: ``eval.harness.evaluate`` over 8 images of two true
+   shapes (the second (48, 480, 160) with en-face (200, 160), the same
+   bucket) at ``eval_batch`` 4, with the HRF metrics (Dice, BCE,
+   Precision, Recall, Hausdorff and Hausdorff95 on the device): images/s
+   on the kernel path and on ``kernels=False`` (best of two, in turns),
+   the card's busy share and its largest kernels.  The launch counts of
+   that kernel-path run are K7's.
+7. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+   ensemble step for the eval instances, the train step for the training
+   kernels and the bucketed serving run for K7; max-abs-err of its fp32
+   comparisons; per-step times summed over the bf16 B=4 calls), the card
+   line, and last the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without CUDA or without the package.
 """
@@ -99,6 +127,14 @@ BF16_RATIO_MARGIN = 0.05
 CONTROLS = ("zeroed dw", "dropped stats cotangent", "dropped ds")
 OCT_YZX = (32, 496, 128)
 SLO_HW = (320, 128)
+# bucketed serving (phase 6): two true whole-volume shapes, (D, H, W) and
+# en-face (H, W), that pad to one bucket
+SERVE_OCT = ((48, 496, 176), (48, 480, 160))
+SERVE_SLO = ((208, 176), (200, 160))
+BUCKET = 64
+SERVE_IMAGES = 8
+SERVE_BATCH = 4
+SPACING = (0.12, 0.0039, 0.0117)   # mm per (D, H, W) voxel
 _FC = "multimodal_fusion_fpn_torch/csrc/fused_conv.cu"
 _FCB = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd.cu"
 _POOL = "multimodal_fusion_fpn_torch/csrc/pool.cu"
@@ -116,6 +152,8 @@ KERNELS = {
     "fused_conv_ky3_dgrad": (_FCB, f"{_TPU_FC}:2721", "train"),
     "fused_conv_ky3_wgrad": (_FCB, f"{_TPU_FC}:2721", "train"),
     "max_pool3d_cl_bwd": (_POOL, f"{_TPU_POOL}:132", "train"),
+    "fused_conv_dyn": (_FC, f"{_TPU_FC}:445", "bucketed"),
+    "fused_conv_dyn_ky3": (_FC, f"{_TPU_FC}:2594", "bucketed"),
 }
 TRAIN_KERNELS = [k for k, v in KERNELS.items() if v[2] == "train"]
 
@@ -217,7 +255,7 @@ def check_conv_shape(key, n_calls, gen):
     """Kernel vs plain (vs F.conv3d) at one recorded fused_conv call."""
     import torch.nn.functional as F
     from multimodal_fusion_fpn_torch.ops import fused_conv as fc
-    name, xs, ws, sz, relu, affine, _, dts = key
+    name, xs, ws, sz, relu, affine, _, dts = key[:8]
     dt = _dtype(dts)
     x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
     y = fc.fused_conv(x, s, b, w, relu, sz)
@@ -240,13 +278,48 @@ def check_conv_shape(key, n_calls, gen):
                 bound_ms=b_ms, bound_by=b_by, ok=ok, **stats)
 
 
+def check_dyn_shape(key, n_calls, gen):
+    """K7 vs its plain version at one recorded extents call.  The input is
+    random everywhere, so the padding beyond the extents holds garbage: the
+    same conv without the mask must differ from the plain version, unless
+    the extents cover the whole input."""
+    import torch.nn.functional as F
+    from multimodal_fusion_fpn_torch.ops import fused_conv as fc
+    from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
+    name, xs, ws, sz, relu, affine, _, dts, ext = key
+    dt = _dtype(dts)
+    x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
+    run = lambda: fc.fused_conv(x, s, b, w, relu, sz, dyn_extents=ext)
+    plain = lambda: fc.fused_conv_dyn_plain(x, s, b, w, relu, sz, ext)
+    ok, stats = compare(run(), plain(), dt)
+    whole = tuple(ext) == tuple(xs[1:4])
+    unmasked_ok = compare(fc.fused_conv_plain(x, s, b, w, relu, sz),
+                          plain(), dt)[0]
+    garbage_shows = whole or not unmasked_ok
+    t = mask_valid(fc.affine_relu(x, s, b, relu),
+                   dict(zip((1, 2, 3), ext))).permute(0, 4, 1, 2, 3)
+    wl = w.permute(4, 3, 0, 1, 2).contiguous()
+    pad = tuple(k // 2 for k in ws[:3])
+    nbytes, flops, _ = conv_cost(xs, ws, sz, x.element_size(), affine)
+    b_ms, b_by = bound(nbytes, flops, dts)
+    return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
+                relu=relu, affine=affine, extents=list(ext),
+                calls_per_step=n_calls, flop=flops, bytes=nbytes,
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
+                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
+                library_ms=time_ms(lambda: F.conv3d(
+                    t, wl, stride=(1, 1, sz), padding=pad)),
+                bound_ms=b_ms, bound_by=b_by, ok=ok and garbage_shows,
+                garbage_shows=garbage_shows, **stats)
+
+
 def check_stats_shape(key, n_calls, gen):
     """The stats instance: (y, s1, s2) vs plain; s1/s2 also vs the sums
     of the kernel's own y; two runs bitwise equal."""
     import torch
     import torch.nn.functional as F
     from multimodal_fusion_fpn_torch.ops import fused_conv as fc
-    name, xs, ws, sz, relu, affine, _, dts = key
+    name, xs, ws, sz, relu, affine, _, dts = key[:8]
     dt = _dtype(dts)
     x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
     run = lambda: fc.fused_conv(x, s, b, w, relu, sz, with_stats=True)
@@ -283,7 +356,7 @@ def check_bwd_shape(key, n_calls, gen):
     cotangent where the recorded call had it; two runs bitwise equal."""
     import torch
     from multimodal_fusion_fpn_torch.ops import fused_conv as fc
-    name, xs, ws, sz, relu, affine, stats, dts = key
+    name, xs, ws, sz, relu, affine, stats, dts = key[:8]
     dt = _dtype(dts)
     x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
     y = fc.fused_conv(x, s, b, w, relu, sz)
@@ -453,6 +526,149 @@ def make_batch(B, seed, yzx=OCT_YZX, slo_hw=SLO_HW):
     return {"image": rng.normal(size=(B, 1, Y, Z, X)).astype(np.float32),
             "slo": rng.normal(size=(B, 1, H, 1, W)).astype(np.float32),
             "mask": (rng.random((B, 1, Y, 1, X)) > 0.7).astype(np.float32)}
+
+
+def serving_batch(B, seed, shape=0):
+    """B images of true shape ``SERVE_OCT[shape]`` / ``SERVE_SLO[shape]``
+    with a mask and the spacing, in the reference layout (numpy)."""
+    batch = make_batch(B, seed, (SERVE_OCT[shape][0], SERVE_OCT[shape][1],
+                                 SERVE_OCT[shape][2]), SERVE_SLO[shape])
+    batch["spacing"] = np.tile(np.asarray(SPACING), (B, 1))
+    return batch
+
+
+def compare_bucketed(y, ref, dtype, bf16_cos=0.9999):
+    """(ok, stats): fp32 by max-abs-err <= 1e-5 * max|ref|, bf16 by cosine
+    >= ``bf16_cos`` and norm ratio within 1%."""
+    import torch
+    _, st = compare(y, ref, dtype)
+    if dtype == torch.float32:
+        ok = st["max_err"] <= 1e-5 * st["max_ref"]
+    else:
+        ok = st["cos"] >= bf16_cos and abs(st["norm_ratio"] - 1) <= 0.01
+    return bool(ok and torch.isfinite(y).all()), st
+
+
+def hrf_metrics():
+    """The HRF serving metrics (``eval/configs.py:35-45``), the distances
+    on the device."""
+    from multimodal_fusion_fpn_torch.metrics import streaming as M
+    kw = dict(output_key="prediction", target_key="mask")
+    return {"Dice": M.Dice(slice=0, **kw), "BCE": M.BCE(slice=0, **kw),
+            "Precision": M.Precision(**kw), "Recall": M.Recall(**kw),
+            "Hausdorff": M.Hausdorff(slice=0, device=True, **kw),
+            "Hausdorff95": M.Hausdorff95(slice=0, device=True, **kw)}
+
+
+def check_bucketed_ensemble(tag, dt, B, model, sds):
+    """Phase 6 (b) and (c) at one configuration: (ok, record)."""
+    import torch
+    from multimodal_fusion_fpn_torch.eval.ensemble import \
+        make_ensemble_eval_step
+    from multimodal_fusion_fpn_torch.eval.harness import bucket_pad
+    from multimodal_fusion_fpn_torch.metrics import streaming as M
+    step = make_ensemble_eval_step(model, sds, with_hd=True)
+    batch = serving_batch(B, 6)
+    model_in = {k: batch[k] for k in ("image", "slo", "mask")}
+    padded = bucket_pad(model_in, BUCKET)
+    sp = batch["spacing"][:, [0, 2]]
+    Y, X = SERVE_OCT[0][0], SERVE_OCT[0][2]
+
+    def pred(b, kernels=True):
+        out = step(b, sp, kernels=kernels)
+        torch.cuda.synchronize()
+        return out["prediction"][:, :, :Y, :, :X].float() - 0.5, out
+
+    pred(padded)
+    pred(padded, False)
+    got, out = pred(padded)
+    plain, _ = pred(padded, False)
+    unpadded, _ = pred(model_in)
+    plain_unpadded, _ = pred(model_in, False)
+    bad = dict(padded, __valid_image__=np.asarray(padded["image"].shape[2:]),
+               __valid_enface__=np.asarray(padded["slo"].shape[2::2]))
+    control, _ = pred(bad)
+    ok_u, st_u = compare_bucketed(got, unpadded, dt)
+    ok_pu, st_pu = compare_bucketed(plain, plain_unpadded, dt)
+    ok_p, st_p = compare_bucketed(got, plain, dt, bf16_cos=0.999)
+    st_kp_unpadded = compare(unpadded, plain_unpadded, dt)[1]
+    ok_c, st_c = compare_bucketed(control, unpadded, dt)
+    # (c) the fused distances against scipy on the cropped mean prediction
+    host = {"Hausdorff": M.Hausdorff(output_key="prediction",
+                                     target_key="mask", slice=0),
+            "Hausdorff95": M.Hausdorff95(output_key="prediction",
+                                         target_key="mask", slice=0)}
+    hd_rows, ok_hd = [], True
+    for i in range(B):
+        one = {k: v[i:i + 1] for k, v in batch.items()}
+        p = {"prediction": (got[i:i + 1] + 0.5).cpu().numpy()}
+        for name, key, rtol in (("Hausdorff", "__device_hd__", 1e-5),
+                                ("Hausdorff95", "__device_hd95__", 1e-4)):
+            want = float(host[name].calculate_batch(one, p)[0])
+            have = float(out[key][i])
+            same = (np.isnan(want) and np.isnan(have)) or (
+                abs(have - want) <= rtol * abs(want))
+            ok_hd &= bool(same)
+            hd_rows.append([i, name, have, want])
+    ok = ok_u and ok_pu and ok_p and not ok_c and ok_hd
+    return ok, {"phase": "bucketed_e2e", "config": tag, "members": MEMBERS,
+                "batch": B, "padded_image": list(padded["image"].shape),
+                "padded_slo": list(padded["slo"].shape), "ok": ok,
+                "vs_unpadded": dict(st_u, ok=ok_u),
+                "plain_vs_plain_unpadded": dict(st_pu, ok=ok_pu),
+                "vs_plain": dict(st_p, ok=ok_p),
+                "unpadded_kernels_vs_plain": st_kp_unpadded,
+                "control_padded_extents": dict(st_c, ok=ok_c),
+                "control_caught": not ok_c, "hausdorff_ok": ok_hd,
+                "hausdorff_device_vs_host": hd_rows}
+
+
+def serving_rate(step, card):
+    """Phase 6 (d): ``evaluate`` over SERVE_IMAGES images; (record, the
+    launch counts of one kernel-path run)."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.eval.harness import evaluate
+    batches = []
+    for i in range(SERVE_IMAGES):
+        b = serving_batch(1, 100 + i, shape=i * 2 // SERVE_IMAGES)
+        b["FileSetId"] = [f"image{i}"]
+        batches.append(b)
+
+    def run(kernels):
+        t0 = time.time()
+        rows, _ = evaluate(lambda b, sp=None: step(b, sp, kernels=kernels),
+                           batches, hrf_metrics(), BUCKET, SERVE_BATCH)
+        torch.cuda.synchronize()
+        return time.time() - t0, rows
+
+    run(True)
+    run(False)
+    ops.reset_launches()
+    _, rows = run(True)
+    launches = ops.kernel_launches()
+    times = {}
+    for kern in (True, False, False, True):
+        times.setdefault(kern, []).append(run(kern)[0])
+    busy = {kern: trace_step(lambda: run(kern)) for kern in (True, False)}
+    best = {k: min(v) for k, v in times.items()}
+    return {"phase": "serving", "images": SERVE_IMAGES,
+            "eval_batch": SERVE_BATCH, "bucket": BUCKET,
+            "true_shapes": [list(o) + list(e)
+                            for o, e in zip(SERVE_OCT, SERVE_SLO)],
+            "img_per_s_kernels": SERVE_IMAGES / best[True],
+            "img_per_s_plain": SERVE_IMAGES / best[False],
+            "seconds_kernels_runs": times[True],
+            "seconds_plain_runs": times[False],
+            "device_busy_ms_kernels": busy[True][0],
+            "device_busy_ms_plain": busy[False][0],
+            "device_busy_share_kernels": busy[True][0] / 1e3 / best[True],
+            "device_busy_share_plain": busy[False][0] / 1e3 / best[False],
+            "top_device_kernels_kernels": busy[True][1],
+            "top_device_kernels_plain": busy[False][1],
+            "rows": [[r["FileSetId"], r["Dice"], r["Hausdorff"],
+                      r["Hausdorff95"], r["Area"]] for r in rows],
+            "launches": launches, "card": card}, launches
 
 
 def member_state_dicts(model, n):
@@ -871,7 +1087,8 @@ def main() -> int:
         per_member = shapes[tag][2]
         counted = all(launches[k] == MEMBERS * per_member[k] > 0
                       for k, v in KERNELS.items() if v[2] == "ensemble")
-        times, busy = timed_paths(lambda kernels: step(batch, kernels))
+        times, busy = timed_paths(
+            lambda kernels: step(batch, kernels=kernels))
         torch.cuda.reset_peak_memory_stats()
         step(batch)
         torch.cuda.synchronize()
@@ -1041,13 +1258,81 @@ def main() -> int:
     if not ok:
         failures.append("train, small input: card disagrees with the CPU")
 
-    # --- 6. summary -------------------------------------------------------
+    del trainers, tr, cpu
+    torch.cuda.empty_cache()
+
+    # --- 6. bucketed serving ----------------------------------------------
+    from multimodal_fusion_fpn_torch.eval.ensemble import \
+        make_ensemble_eval_step as ensemble_step
+    from multimodal_fusion_fpn_torch.eval.harness import bucket_pad
+    models = {tag: build_model(cfg, dtype=dt) for tag, dt, _ in configs}
+    bucketed_shapes = {}
+    for tag, dt, B in configs:
+        model = models[tag]
+        model.load_state_dict(sds[0])
+        b = serving_batch(B, 7)
+        padded = bucket_pad({k: b[k] for k in ("image", "slo")}, BUCKET)
+        ops.reset_launches()
+        with torch.inference_mode():
+            model({k: torch.as_tensor(v, device="cuda")
+                   if not k.startswith("__") else v
+                   for k, v in padded.items()})
+        torch.cuda.synchronize()
+        bucketed_shapes[tag] = (dict(fused_conv.calls), dict(pool.calls))
+        emit({"phase": "bucketed_shapes", "config": tag,
+              "padded_image": list(padded["image"].shape),
+              "padded_slo": list(padded["slo"].shape),
+              "launches_per_member": ops.kernel_launches()})
+    n_bad = len(failures)
+    for tag, _, _ in configs:
+        conv_calls, pool_calls = bucketed_shapes[tag]
+        for key, n in sorted(conv_calls.items(), key=str):
+            rec = check_dyn_shape(key, MEMBERS * n, gen)
+            records[("bucketed_" + tag, key)] = rec
+            emit(rec)
+        for key, n in sorted(pool_calls.items(), key=str):
+            rec = check_pool_shape(key, MEMBERS * n, gen)
+            records[("bucketed_" + tag, key)] = rec
+            emit(rec)
+        if not conv_calls or any(k[0] not in ("fused_conv_dyn",
+                                              "fused_conv_dyn_ky3")
+                                 for k in conv_calls):
+            failures.append(f"bucketed {tag}: fused convs {sorted(conv_calls)}"
+                            " are not all extents instances")
+    bad = [r for (tag, _), r in records.items()
+           if tag.startswith("bucketed_") and not r["ok"]]
+    if bad:
+        failures.append(f"{len(bad)} bucketed kernel/plain comparisons "
+                        f"failed: {sorted({r['kernel'] for r in bad})}")
+    for tag, dt, B in configs:
+        ok, rec = check_bucketed_ensemble(tag, dt, B, models[tag], sds)
+        emit(dict(rec, card=card))
+        if not ok:
+            failures.append(
+                f"bucketed {tag}: vs unpadded {rec['vs_unpadded']['ok']}, "
+                f"plain vs unpadded {rec['plain_vs_plain_unpadded']['ok']}, "
+                f"vs plain {rec['vs_plain']['ok']}, control caught "
+                f"{rec['control_caught']}, Hausdorff {rec['hausdorff_ok']}")
+    rec, main_launches["bucketed"] = serving_rate(
+        ensemble_step(models["bf16_B4"], sds, with_hd=True), card)
+    emit(rec)
+    if not all(main_launches["bucketed"][k] > 0
+               for k, v in KERNELS.items() if v[2] == "bucketed"):
+        failures.append(f"serving: K7 was not launched: "
+                        f"{main_launches['bucketed']}")
+    emit({"phase": "bucketed_done", "ok": len(failures) == n_bad,
+          "seconds": time.time() - t_start})
+    del models
+    torch.cuda.empty_cache()
+
+    # --- 7. summary -------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
+        prefix = "bucketed_" if path == "bucketed" else ""
         main = [r for (tag, _), r in records.items()
-                if tag == "bf16_B4" and r["kernel"] == name]
+                if tag == prefix + "bf16_B4" and r["kernel"] == name]
         fp32 = [r for (tag, _), r in records.items()
-                if tag == "fp32_B1" and r["kernel"] == name]
+                if tag == prefix + "fp32_B1" and r["kernel"] == name]
         t_bytes = sum(r["calls_per_step"] * r["bound_ms"]
                       for r in main if r["bound_by"] == "bytes")
         t_ops = sum(r["calls_per_step"] * r["bound_ms"]
@@ -1058,6 +1343,7 @@ def main() -> int:
             "replaces": replaces, "step": path, "launches": launches,
             "launches_train_step": main_launches["train"][name],
             "launches_ensemble_step": main_launches["ensemble"][name],
+            "launches_bucketed_serving": main_launches["bucketed"][name],
             "max_abs_err": max(r["max_err"] for r in fp32),
             "ms": per_step(main, "kernel_ms"),
             "plain_ms": per_step(main, "plain_ms"),

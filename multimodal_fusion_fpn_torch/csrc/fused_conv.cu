@@ -23,6 +23,14 @@
 // (x*s rounded to bf16, then +b rounded to bf16); products are exact in fp32
 // and accumulate in fp32; the output is rounded once to the storage type.
 //
+// With `dyn` (K7, the TPU kernels' `with_dyn`: eval under exact shape
+// bucketing) the prologue also reads 0 at every tap whose (y, x, z) lies at
+// or beyond the input's true extents (yt, xt, zt) inside the zero-padded
+// buffer, where the affine would otherwise turn the padding (and the garbage
+// that an earlier layer left there) into relu(bias).  The extents are three
+// kernel arguments; the instances without them are compiled apart, so the
+// check costs them nothing.  Eval only: no stats, no backward.
+//
 // Bound on the H100: at the stage 1-3 shapes a call does ~37 GFLOP on
 // ~0.5 GB of bf16 traffic, so it is compute-bound (on tensor cores as well as
 // on the fp32 CUDA cores this kernel uses).  Design: one 256-thread block
@@ -48,12 +56,19 @@ __host__ __device__ constexpr int min_blocks(int KX, bool stats) {
   return KX == 3 && !stats ? 3 : 4;
 }
 
-template <typename T, int KY, int KX, int KZ, int SZ, bool STATS>
+// The true extents of the input of a DYN instance (the whole volume for the
+// others, which never read them).
+struct Extents {
+  int y, x, z;
+};
+
+template <typename T, int KY, int KX, int KZ, int SZ, bool STATS, bool DYN>
 __global__ void __launch_bounds__(kThreads, min_blocks(KX, STATS))
 fused_conv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                   const T* __restrict__ bias, const T* __restrict__ w,
                   T* __restrict__ out, float* __restrict__ partial, int Y,
-                  int X, int Z, int Zo, int ci, int co, int TX, int relu) {
+                  int X, int Z, int Zo, int ci, int co, int TX, int relu,
+                  Extents ext) {
   const int TY = kTYX / TX;
   const int n_xt = (X + TX - 1) / TX;
   const int zt = blockIdx.x / n_xt;
@@ -65,17 +80,19 @@ fused_conv_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   const int tz = threadIdx.x % kTZ;
   const int ty = threadIdx.x / kTZ / TX, tx = threadIdx.x / kTZ % TX;
 
-  // the activated input, zero outside the volume; w[tap][ch][cg*16 + o]
+  // the activated input, zero outside the volume (and, for DYN, at or
+  // beyond the true extents); w[tap][ch][cg*16 + o]
   const int64_t x_b = (int64_t)b * Y * X * Z * ci;
+  const int z_end = DYN ? ext.z : Z;
   float acc[kCO];
   conv_tile<KY, KX, KZ, SZ>(
       acc, ci, Y, X, TX, y0, x0,
       [&](int ch, int gy, int gx, int zz) {
         const int gz = z0 * SZ + zz - KZ / 2;
-        return gz >= 0 && gz < Z
-                   ? activate(x, scale, bias,
-                              x_b + (((int64_t)gy * X + gx) * Z + gz) * ci + ch, ch, relu)
-                   : 0.f;
+        const bool in = gz >= 0 && gz < z_end && (!DYN || (gy < ext.y && gx < ext.x));
+        return in ? activate(x, scale, bias,
+                             x_b + (((int64_t)gy * X + gx) * Z + gz) * ci + ch, ch, relu)
+                  : 0.f;
       },
       [&](int tap, int ch, int o) {
         return to_f(w[((int64_t)tap * ci + ch) * co + cg * kCO + o]);
@@ -111,8 +128,9 @@ dim3 conv_grid(int B, int Y, int X, int Zo, int co, int* TX) {
 
 template <typename T, int KY, int KX, int KZ, int SZ>
 int launch(const void* x, const void* scale, const void* bias, const void* w,
-           void* out, float* s1, float* s2, float* work, int B, int Y, int X,
-           int Z, int Zo, int ci, int co, int relu, cudaStream_t stream) {
+           void* out, float* s1, float* s2, float* work, const int* dyn, int B,
+           int Y, int X, int Z, int Zo, int ci, int co, int relu,
+           cudaStream_t stream) {
   int TX;
   const dim3 grid = conv_grid(B, Y, X, Zo, co, &TX);
   const T* xp = static_cast<const T*>(x);
@@ -120,13 +138,20 @@ int launch(const void* x, const void* scale, const void* bias, const void* w,
   const T* bp = static_cast<const T*>(bias);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-  if (s1 == nullptr) {
-    fused_conv_kernel<T, KY, KX, KZ, SZ, false><<<grid, kThreads, 0, stream>>>(
-        xp, sp, bp, wp, op, nullptr, Y, X, Z, Zo, ci, co, TX, relu);
+  if (dyn != nullptr) {
+    const Extents ext{dyn[0], dyn[1], dyn[2]};
+    fused_conv_kernel<T, KY, KX, KZ, SZ, false, true><<<grid, kThreads, 0, stream>>>(
+        xp, sp, bp, wp, op, nullptr, Y, X, Z, Zo, ci, co, TX, relu, ext);
     return (int)cudaGetLastError();
   }
-  fused_conv_kernel<T, KY, KX, KZ, SZ, true><<<grid, kThreads, 0, stream>>>(
-      xp, sp, bp, wp, op, work, Y, X, Z, Zo, ci, co, TX, relu);
+  const Extents whole{Y, X, Z};
+  if (s1 == nullptr) {
+    fused_conv_kernel<T, KY, KX, KZ, SZ, false, false><<<grid, kThreads, 0, stream>>>(
+        xp, sp, bp, wp, op, nullptr, Y, X, Z, Zo, ci, co, TX, relu, whole);
+    return (int)cudaGetLastError();
+  }
+  fused_conv_kernel<T, KY, KX, KZ, SZ, true, false><<<grid, kThreads, 0, stream>>>(
+      xp, sp, bp, wp, op, work, Y, X, Z, Zo, ci, co, TX, relu, whole);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const int n_tiles = grid.x * grid.y * B;
@@ -137,13 +162,13 @@ int launch(const void* x, const void* scale, const void* bias, const void* w,
 template <typename T>
 int dispatch(int ky, int kx, int kz, int sz, const void* x, const void* scale,
              const void* bias, const void* w, void* out, float* s1, float* s2,
-             float* work, int B, int Y, int X, int Z, int Zo, int ci, int co,
-             int relu, cudaStream_t s) {
+             float* work, const int* dyn, int B, int Y, int X, int Z, int Zo,
+             int ci, int co, int relu, cudaStream_t s) {
   const int key = ((ky * 4 + kx) * 4 + kz) * 4 + sz;
 #define MMF_CASE(KY, KX, KZ, SZ)                                             \
   if (key == ((KY * 4 + KX) * 4 + KZ) * 4 + SZ)                              \
     return launch<T, KY, KX, KZ, SZ>(x, scale, bias, w, out, s1, s2, work,   \
-                                     B, Y, X, Z, Zo, ci, co, relu, s);
+                                     dyn, B, Y, X, Z, Zo, ci, co, relu, s);
   MMF_CASE(1, 3, 3, 1)
   MMF_CASE(3, 1, 1, 1)
   MMF_CASE(1, 1, 1, 1)
@@ -168,16 +193,22 @@ extern "C" unsigned long long mmf_fused_conv_work_bytes(int B, int Y, int X,
 // Shapes: x (B, Y, X, Z, ci), w (ky, kx, kz, ci, co), out (B, Y, X, Zo, co),
 // all contiguous.  Requires ci % 8 == 0 and co % 16 == 0.  s1, s2 (fp32, co)
 // and work (mmf_fused_conv_work_bytes) are all NULL, or all given for the
-// stats instance.  Returns the cudaGetLastError() of the launches (0 on
-// success).
+// stats instance.  dyn is NULL, or host memory holding the input's true
+// extents {yt, xt, zt} (1 <= yt <= Y, 1 <= xt <= X, 1 <= zt <= Z) for the
+// extents instance, which takes no stats.  Returns the cudaGetLastError() of
+// the launches (0 on success).
 extern "C" int mmf_fused_conv(int dtype, int ky, int kx, int kz, int sz,
                               const void* x, const void* scale,
                               const void* bias, const void* w, void* out,
-                              void* s1, void* s2, void* work, int B, int Y,
-                              int X, int Z, int Zo, int ci, int co, int relu,
-                              void* stream) {
+                              void* s1, void* s2, void* work, const int* dyn,
+                              int B, int Y, int X, int Z, int Zo, int ci,
+                              int co, int relu, void* stream) {
   if (ci % kCI != 0 || co % kCO != 0) return (int)cudaErrorInvalidValue;
   if ((s1 == nullptr) != (s2 == nullptr) || (s1 == nullptr) != (work == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dyn != nullptr &&
+      (s1 != nullptr || dyn[0] < 1 || dyn[0] > Y || dyn[1] < 1 || dyn[1] > X ||
+       dyn[2] < 1 || dyn[2] > Z))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* f1 = static_cast<float*>(s1);
@@ -185,9 +216,9 @@ extern "C" int mmf_fused_conv(int dtype, int ky, int kx, int kz, int sz,
   float* wk = static_cast<float*>(work);
   if (dtype == 0)
     return dispatch<float>(ky, kx, kz, sz, x, scale, bias, w, out, f1, f2, wk,
-                           B, Y, X, Z, Zo, ci, co, relu, s);
+                           dyn, B, Y, X, Z, Zo, ci, co, relu, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(ky, kx, kz, sz, x, scale, bias, w, out, f1,
-                                   f2, wk, B, Y, X, Z, Zo, ci, co, relu, s);
+                                   f2, wk, dyn, B, Y, X, Z, Zo, ci, co, relu, s);
   return (int)cudaErrorInvalidValue;
 }

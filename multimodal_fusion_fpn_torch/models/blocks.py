@@ -26,6 +26,18 @@ updates ``running_mean``/``running_var`` with momentum 0.1 (flax's 0.9),
 the var UNBIASED (x n/(n-1)) as torch's BatchNorm3d does, and counts
 ``num_batches_tracked``.
 
+Exact shape bucketing (eval only, ``blocks.py:168-236,700-725,1135-1215``):
+``forward`` takes the true extents ``ext`` = (y, x, z) of its input inside
+the zero-padded buffer (None: unbucketed; an entry None: the whole axis).
+Every conv's activated input reads 0 at or beyond them, as the SAME
+padding of the unpadded run reads 0: the extents instance of the kernel
+(K7) does it in its prologue, the plain path as ``mask_valid(affine_relu(
+x))`` before the conv.  The extents advance through each conv with the
+conv's own size arithmetic (a stride-2 conv takes z to (z + 1) // 2), and
+a block's output is masked to its extents, so pools, projections and
+residuals read zeros there.  The JAX package passes the extents down a
+context stack; here they are an argument.
+
 Which convs run the hand-written kernel (``ops.fused_conv``) when
 ``kernels`` is True mirrors where the JAX package runs its Pallas kernel:
 the encoder stages and projection cascades of at most 64 channels, except
@@ -43,6 +55,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
 from multimodal_fusion_fpn_torch.ops.fused_conv import (affine_relu,
                                                         channel_sums,
                                                         conv3d_cl,
@@ -83,6 +96,12 @@ class ConvWeight(nn.Module):
 
     def reset_parameters(self, generator=None):
         xavier_normal_(self.weight, generator)
+
+    @property
+    def taps(self) -> Tuple[int, int, int]:
+        """(kY, kX, kz) of :meth:`logical`."""
+        k = tuple(self.weight.shape[2:])
+        return k if len(k) == 3 else (k[0], 1, k[1])
 
     def logical(self, dtype: torch.dtype) -> torch.Tensor:
         """(kY, kX, kz, ci, co) in ``dtype``; a 2D (kh, kw) kernel becomes
@@ -163,6 +182,33 @@ class BNFold(nn.Module):
         return s.to(dtype), b.to(dtype)
 
 
+Extents = Optional[Tuple[Optional[int], Optional[int], Optional[int]]]
+
+
+def mask_extents(t: torch.Tensor, ext: Extents) -> torch.Tensor:
+    """``t`` (B, Y, X, Z, C) zeroed at or beyond the true extents ``ext``."""
+    return t if ext is None else mask_valid(t, dict(zip((1, 2, 3), ext)))
+
+
+def conv_extents(ext: Extents, kernel: Sequence[int], stride_z: int = 1,
+                 valid: bool = False) -> Extents:
+    """The true extents after one conv: SAME (or VALID) padding, stride
+    ``stride_z`` along z only (``ConvX._ext_after``)."""
+    if ext is None:
+        return None
+    out = []
+    for n, k, s in zip(ext, kernel, (1, 1, stride_z)):
+        p = 0 if valid else k // 2
+        out.append(None if n is None else (n + 2 * p - k) // s + 1)
+    return tuple(out)
+
+
+def _full(ext: Extents, t: torch.Tensor):
+    """``ext`` with the whole-axis entries (None) filled from ``t``'s
+    (Y, X, Z)."""
+    return tuple(t.shape[1 + i] if e is None else e for i, e in enumerate(ext))
+
+
 def _conv_bn(ci: int, co: int, kernel: Sequence[int]) -> nn.ModuleList:
     return nn.ModuleList([ConvWeight(ci, co, kernel), BNFold(co)])
 
@@ -195,27 +241,44 @@ class ConvX(nn.Module):
         self.ds_stride_z = ds_stride_z
         self.fused = fused
 
-    def _conv(self, x, s, b, w, relu, stride_z, kernels):
+    def _conv(self, x, s, b, w, relu, stride_z, kernels, ext):
         """-> (y, sums): in training a fused conv also returns the fp32
-        (sum y, sum y*y) of its stats epilogue; otherwise sums is None."""
+        (sum y, sum y*y) of its stats epilogue; otherwise sums is None.
+        ``ext``: the true extents of x (module note)."""
         ci = w.shape[3]
         if kernels and self.fused and ci >= 8 and self.padding == "same":
             if self.training:
                 y, s1, s2 = fused_conv(x, s, b, w, relu, stride_z,
                                        with_stats=True)
                 return y, (s1, s2)
-            return fused_conv(x, s, b, w, relu, stride_z), None
+            dyn = None if ext is None else _full(ext, x)
+            return fused_conv(x, s, b, w, relu, stride_z,
+                              dyn_extents=dyn), None
         pad = ((0, 0, 0) if self.padding == "valid"
                else tuple(k // 2 for k in w.shape[:3]))
-        return conv3d_cl(affine_relu(x, s, b, relu), w, (1, 1, stride_z),
-                         pad), None
+        t = mask_extents(affine_relu(x, s, b, relu), ext)
+        return conv3d_cl(t, w, (1, 1, stride_z), pad), None
 
-    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    def out_extents(self, ext: Extents) -> Extents:
+        """The true extents of the block's output for input extents
+        ``ext``."""
+        for conv, _ in self.convBlock:
+            ext = conv_extents(ext, conv.taps,
+                               self.stride_z, self.padding == "valid")
+        return ext
+
+    def forward(self, x: torch.Tensor, kernels: bool = True,
+                ext: Extents = None) -> torch.Tensor:
+        if ext is not None and self.training:
+            raise ValueError("ConvX: true extents are eval-only")
         dt = x.dtype
-        cur, s, b = x, None, None
+        cur, s, b, e = x, None, None, ext
         for i, (conv, bn) in enumerate(self.convBlock):
-            cur, sums = self._conv(cur, s, b, conv.logical(dt), i > 0,
-                                   self.stride_z, kernels)
+            w = conv.logical(dt)
+            cur, sums = self._conv(cur, s, b, w, i > 0, self.stride_z,
+                                   kernels, e)
+            e = conv_extents(e, w.shape[:3], self.stride_z,
+                             self.padding == "valid")
             s, b = bn.folded(dt, cur, sums)
         out = cur * s + b
         if self.residual:
@@ -223,12 +286,12 @@ class ConvX(nn.Module):
                 conv, bn = self.downsample
                 ds, sums = self._conv(x, None, None, conv.logical(dt), False,
                                       self.ds_stride_z,
-                                      kernels and self.ds_stride_z == 1)
+                                      kernels and self.ds_stride_z == 1, ext)
                 sd, bd = bn.folded(dt, ds, sums)
                 out = out + ds * sd + bd
             else:
                 out = out + x
-        return torch.relu(out)
+        return mask_extents(torch.relu(out), e)
 
 
 class EncoderStage(nn.ModuleList):
@@ -247,11 +310,15 @@ class EncoderStage(nn.ModuleList):
             ConvX(co, co, k_b, fused=fused)])
         self.ndim = ndim
 
-    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernels: bool = True,
+                ext: Extents = None) -> torch.Tensor:
+        """``ext``: the true (y, x, z) of a 3D input, (h, w) of a 2D one."""
         if self.ndim == 2:
             x = x.unsqueeze(2)
+            if ext is not None:
+                ext = (ext[0], None, ext[1])
         for block in self:
-            x = block(x, kernels)
+            x = block(x, kernels, ext)
         return x.squeeze(2) if self.ndim == 2 else x
 
 
@@ -271,9 +338,11 @@ class ZDimReduction(nn.ModuleList):
                         fused=c <= FUSED_MAX_CHANNELS)
             super().__init__([red, fully])
 
-    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernels: bool = True,
+                ext: Extents = None) -> torch.Tensor:
         for block in self:
-            x = block(x, kernels)
+            x = block(x, kernels, ext)
+            ext = block.out_extents(ext)
         return x
 
 
@@ -288,6 +357,9 @@ class UpBlockFusion(nn.Module):
                           downsample=True)
         self.upfactor = tuple(upfactor)
 
-    def forward(self, skip3d, skip2d, deeper, kernels: bool = True):
+    def forward(self, skip3d, skip2d, deeper, kernels: bool = True,
+                ext: Extents = None):
+        """``ext``: the true extents of the skips, (y, x, None)."""
         up = upsample_nearest(deeper, self.upfactor, axes=(1, 2, 3))
-        return self.conv(torch.cat([skip3d, skip2d, up], dim=-1), kernels)
+        return self.conv(torch.cat([skip3d, skip2d, up], dim=-1), kernels,
+                         ext)

@@ -6,6 +6,12 @@ returns ``{'prediction': sigmoid(logits)}`` in that layout
 (:mod:`.layouts`), in eval or train mode (BatchNorm batch stats).
 ``kernels`` chooses the hand-written kernels (True) or their plain PyTorch
 versions (False); nothing switches it automatically.
+
+Exact shape bucketing: the reserved batch keys ``__valid_image__`` (the
+true (D, H, W) of the zero-padded ``image``) and ``__valid_enface__`` (the
+true (H, W) of the en-face map) carry the true extents
+(``zoo.py:51-64``).  They are read on the host as integers; the model then
+evaluates over the true extents inside the padded buffers (eval only).
 """
 
 import os
@@ -34,6 +40,24 @@ def interpolate_from_crop(crop: str) -> Optional[str]:
     return interpolate
 
 
+def _ints(v):
+    """A host sequence of ints from a list, array or tensor."""
+    return [int(e) for e in (v.tolist() if hasattr(v, "tolist") else v)]
+
+
+def bucket_extents(batch):
+    """(ext3d, ext2d) from the reserved keys: the volume's true (D, H, W)
+    in the device order (y, x, z) = (D, W, H), the en-face map's (H, W);
+    None where a key is absent."""
+    ext3d = ext2d = None
+    if batch.get("__valid_image__") is not None:
+        d, h, w = _ints(batch["__valid_image__"])
+        ext3d = (d, w, h)
+    if batch.get("__valid_enface__") is not None:
+        ext2d = tuple(_ints(batch["__valid_enface__"]))
+    return ext3d, ext2d
+
+
 @add_class
 class FPNHybridFusion(nn.Module):
     def __init__(self, spec: ArchSpec, n_classes: int = 1,
@@ -48,7 +72,15 @@ class FPNHybridFusion(nn.Module):
     def forward(self, batch, kernels: bool = True):
         oct = volume_to_device(batch["image"].to(self.dtype))
         enface = enface_to_device(batch[self.fusion_modality].to(self.dtype))
-        seg = seg_from_device(self.resensnet(oct, enface, kernels))
+        ext3d, ext2d = bucket_extents(batch)
+        if ext3d is not None or ext2d is not None:
+            # a modality the bucketing left unpadded is whole (ROADMAP
+            # Queue 3: the JAX package aligns its skips to the padded
+            # shape then)
+            ext3d = ext3d or tuple(oct.shape[1:4])
+            ext2d = ext2d or tuple(enface.shape[1:3])
+        seg = seg_from_device(self.resensnet(oct, enface, kernels, ext3d,
+                                             ext2d))
         return {"prediction": torch.sigmoid(seg)}
 
 

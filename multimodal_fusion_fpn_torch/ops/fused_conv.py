@@ -10,7 +10,9 @@ both None for the identity.  Padding applies to the activated input: an
 out-of-range tap reads 0, not relu(bias).  At z stride 2 the output depth
 is (Z + 1) // 2.  ``with_stats`` (training) also returns the fp32
 per-output-channel sums of y and y*y of the rounded output, which feed the
-next BatchNorm.
+next BatchNorm.  ``dyn_extents`` (eval under exact shape bucketing) gives
+the true extents (yt, xt, zt) of x inside its zero-padded buffer: the
+activated input also reads 0 at or beyond them (:func:`fused_conv_dyn_plain`).
 
 The backward (:func:`fused_conv_bwd`) takes the output cotangent g and,
 for the stats instance, the stats cotangent (y, gs1, gs2), folded in as
@@ -28,9 +30,13 @@ Source note.  The CUDA kernels replace the TPU kernels of
 * ``csrc/fused_conv.cu``: ``_kernel`` (K1, via ``_fused_conv_pallas_mats``:
   the (1,3,3), (1,1,3), 1x1x1 and stride-2 (1,1,3) convs) and
   ``_yck_kernel`` (K2, via ``_fused_conv_pallas_yck``: the (3,1,1) conv),
-  with their ``with_stats`` epilogue.  One template, counted apart:
-  ``launches["fused_conv"]`` for kY == 1, ``"fused_conv_ky3"`` for kY == 3,
-  and ``"fused_conv_stats"`` / ``"fused_conv_ky3_stats"`` for the stats
+  with their ``with_stats`` epilogue, and K7: the same kernels ``with_dyn``
+  (``fused_conv_dyn`` / ``fused_conv_strided_dyn``, the prologue masked to
+  the true extents, ``fused_conv.py:445-491``, ``:2594-2625``).  One
+  template, counted apart: ``launches["fused_conv"]`` for kY == 1,
+  ``"fused_conv_ky3"`` for kY == 3, ``"fused_conv_stats"`` /
+  ``"fused_conv_ky3_stats"`` for the stats instances and
+  ``"fused_conv_dyn"`` / ``"fused_conv_dyn_ky3"`` for the extents
   instances.
 * ``csrc/fused_conv_bwd.cu``: ``_dx_kernel`` (K3, ``_dx_pallas(...,
   want_band=True)``, the merged backward) and ``_yck_dx_kernel`` (K4,
@@ -60,15 +66,17 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_fusion_fpn_torch.ops import _build
+from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
 
 # Kernel launches since the last reset, per kernel, and the call shapes
 # they ran at: (kernel, x shape, w shape, z stride, relu, affine, stats,
-# dtype); ``stats`` is the stats epilogue of a forward, or the stats
-# cotangent of a backward.
+# dtype, extents); ``stats`` is the stats epilogue of a forward, or the
+# stats cotangent of a backward; ``extents`` the true (yt, xt, zt) of an
+# extents instance, else None.
 launches = {name: 0 for name in (
     "fused_conv", "fused_conv_ky3", "fused_conv_stats", "fused_conv_ky3_stats",
     "fused_conv_dgrad", "fused_conv_wgrad", "fused_conv_ky3_dgrad",
-    "fused_conv_ky3_wgrad")}
+    "fused_conv_ky3_wgrad", "fused_conv_dyn", "fused_conv_dyn_ky3")}
 calls: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -90,6 +98,18 @@ def conv3d_cl(t: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     y = F.conv3d(t.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
                  stride=tuple(stride), padding=tuple(padding))
     return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def fused_conv_dyn_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
+                         bias: Optional[torch.Tensor], w: torch.Tensor,
+                         relu: bool, stride_z: int,
+                         dyn_extents: Sequence[int]) -> torch.Tensor:
+    """The plain PyTorch version of the extents instance (K7): the activated
+    input masked to the true extents ``(yt, xt, zt)`` of x, then the conv."""
+    t = affine_relu(x, scale, bias, relu)
+    t = mask_valid(t, dict(zip((1, 2, 3), dyn_extents)))
+    return conv3d_cl(t, w, (1, 1, stride_z),
+                     tuple(k // 2 for k in w.shape[:3]))
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -186,6 +206,18 @@ def fused_conv_bwd_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
     return (*fused_conv_dgrad_plain(*args), fused_conv_wgrad_plain(*args))
 
 
+def _check_extents(x, dyn_extents):
+    """The extents as three ints within x's (Y, X, Z), or None."""
+    if dyn_extents is None:
+        return None
+    ext = tuple(int(e) for e in dyn_extents)
+    if len(ext) != 3 or not all(1 <= e <= n
+                                for e, n in zip(ext, x.shape[1:4])):
+        raise ValueError(f"fused_conv: extents {tuple(dyn_extents)} outside "
+                         f"x's (Y, X, Z) {tuple(x.shape[1:4])}")
+    return ext
+
+
 def _check(x, scale, bias, w, stride_z):
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_conv: unsupported dtype {x.dtype}")
@@ -267,14 +299,15 @@ def _name(kY, suffix=""):
     return ("fused_conv_ky3" if kY == 3 else "fused_conv") + suffix
 
 
-def _count(name, x, w, stride_z, relu, scale, stats):
+def _count(name, x, w, stride_z, relu, scale, stats, ext=None):
     launches[name] += 1
     calls[(name, tuple(x.shape), tuple(w.shape), stride_z, bool(relu),
-           scale is not None, bool(stats), str(x.dtype))] += 1
+           scale is not None, bool(stats), str(x.dtype), ext)] += 1
 
 
-def _launch_forward(x, scale, bias, w, relu, stride_z, with_stats):
-    """The forward kernel (and its stats reduction) on CUDA tensors."""
+def _launch_forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None):
+    """The forward kernel (and its stats reduction) on CUDA tensors; with
+    ``ext`` (three ints) the extents instance."""
     B, Y, X, Z, ci = x.shape
     kY, kX, kz, _, co = w.shape
     out = torch.empty(_out_shape(x, w, stride_z), dtype=x.dtype,
@@ -286,15 +319,20 @@ def _launch_forward(x, scale, bias, w, relu, stride_z, with_stats):
         s2 = torch.empty_like(s1)
         work = _work(_fn("fused_conv", "mmf_fused_conv_work_bytes",
                          [_INT] * 5, _SIZE)(B, Y, X, Zo, co), x.device)
+    dyn = None if ext is None else (ctypes.c_int * 3)(*ext)
     fn = _fn("fused_conv", "mmf_fused_conv",
-             [_INT] * 5 + [_PTR] * 8 + [_INT] * 8 + [_PTR])
+             [_INT] * 5 + [_PTR] * 9 + [_INT] * 8 + [_PTR])
     rc = fn(_DTYPES[x.dtype], kY, kX, kz, stride_z, x.data_ptr(), _ptr(scale),
             _ptr(bias), w.data_ptr(), out.data_ptr(), _ptr(s1), _ptr(s2),
-            _ptr(work), B, Y, X, Z, Zo, ci, co, int(relu), _stream(x))
+            _ptr(work), None if dyn is None else ctypes.addressof(dyn), B, Y,
+            X, Z, Zo, ci, co, int(relu), _stream(x))
     if rc != 0:
         raise RuntimeError(f"fused_conv: kernel launch failed, CUDA error {rc}")
-    _count(_name(kY, "_stats" if with_stats else ""), x, w, stride_z, relu,
-           scale, with_stats)
+    if ext is not None:
+        name = "fused_conv_dyn_ky3" if kY == 3 else "fused_conv_dyn"
+    else:
+        name = _name(kY, "_stats" if with_stats else "")
+    _count(name, x, w, stride_z, relu, scale, with_stats, ext)
     return (out, s1, s2) if with_stats else out
 
 
@@ -352,11 +390,15 @@ def _device(x, who):
     return x.device.type
 
 
-def _forward(x, scale, bias, w, relu, stride_z, with_stats):
+def _forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None):
     if _device(x, "fused_conv") == "cpu":
+        if ext is not None:
+            return fused_conv_dyn_plain(x, scale, bias, w, relu, stride_z,
+                                        ext)
         return fused_conv_plain(x, scale, bias, w, relu, stride_z, with_stats)
     _check(x, scale, bias, w, stride_z)
-    return _launch_forward(x, scale, bias, w, relu, stride_z, with_stats)
+    return _launch_forward(x, scale, bias, w, relu, stride_z, with_stats,
+                           ext)
 
 
 def fused_conv_bwd(x: torch.Tensor, scale: Optional[torch.Tensor],
@@ -406,15 +448,22 @@ class FusedConv(torch.autograd.Function):
 
 def fused_conv(x: torch.Tensor, scale: Optional[torch.Tensor],
                bias: Optional[torch.Tensor], w: torch.Tensor, relu: bool,
-               stride_z: int = 1, with_stats: bool = False):
+               stride_z: int = 1, with_stats: bool = False,
+               dyn_extents: Optional[Sequence[int]] = None):
     """Launch the CUDA kernel on a CUDA tensor; run
-    :func:`fused_conv_plain` on a CPU tensor.  Returns ``y``, or ``(y, s1,
-    s2)`` with ``with_stats``; differentiable through :class:`FusedConv`
-    when an input requires grad."""
+    :func:`fused_conv_plain` (:func:`fused_conv_dyn_plain` with
+    ``dyn_extents``) on a CPU tensor.  Returns ``y``, or ``(y, s1, s2)``
+    with ``with_stats``; differentiable through :class:`FusedConv` when an
+    input requires grad.  ``dyn_extents`` (the true (yt, xt, zt) of x) is
+    eval-only: it takes no stats and no gradient."""
+    ext = _check_extents(x, dyn_extents)
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, scale, bias, w))
+    if ext is not None and (with_stats or needs_grad):
+        raise ValueError("fused_conv: dyn_extents is eval-only (no stats, "
+                         "no gradient)")
     if not needs_grad:
-        return _forward(x, scale, bias, w, relu, stride_z, with_stats)
+        return _forward(x, scale, bias, w, relu, stride_z, with_stats, ext)
     if _device(x, "fused_conv") == "cuda":
         _check(x, scale, bias, w, stride_z)
         _check_bwd(x, w, stride_z)

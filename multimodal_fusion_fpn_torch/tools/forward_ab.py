@@ -7,7 +7,8 @@ within one process on one GPU.
 ``DIR`` holds the other version's ``fused_conv.cu`` (e.g. an older
 commit's ``multimodal_fusion_fpn_torch/csrc``, unpacked with ``git
 archive``).  Both are compiled with the package's nvcc flags; the other
-version may have the older C interface without the stats arguments.  At
+version may have an older C interface, without the stats arguments or
+without the extents argument.  At
 every bf16 B=4 eval shape (ini widths, crop shapes) the script times the
 stats-free instance of each build in the order other, this, this, other
 (CUDA events, the best of each), checks that the two outputs are bitwise
@@ -43,13 +44,14 @@ def compile_lib(src_dir: str, tag: str) -> str:
     return out
 
 
-def entry(path: str, with_stats: bool):
-    """``run(x, s, b, w, out, relu, sz)`` for the library at ``path``."""
+def entry(path: str, n_extra: int):
+    """``run(x, s, b, w, out, relu, sz)`` for the library at ``path``, whose
+    ``mmf_fused_conv`` takes ``n_extra`` pointers after ``out`` (0; 3 for
+    the stats; 4 for the stats and the extents), all passed as NULL."""
     fn = ctypes.CDLL(path).mmf_fused_conv
-    n_ptr = 8 if with_stats else 5
-    fn.argtypes = [_INT] * 5 + [_PTR] * n_ptr + [_INT] * 8 + [_PTR]
+    fn.argtypes = [_INT] * 5 + [_PTR] * (5 + n_extra) + [_INT] * 8 + [_PTR]
     fn.restype = _INT
-    stats = (None,) * 3 if with_stats else ()
+    stats = (None,) * n_extra
 
     def run(x, s, b, w, out, relu, sz):
         B, Y, X, Z, ci = x.shape
@@ -63,9 +65,14 @@ def entry(path: str, with_stats: bool):
     return run
 
 
-def has_stats_interface(src_dir: str) -> bool:
+def extra_pointers(src_dir: str) -> int:
+    """How many pointers the source's ``mmf_fused_conv`` takes after
+    ``out`` (see :func:`entry`)."""
     with open(os.path.join(src_dir, "fused_conv.cu")) as f:
-        return "mmf_fused_conv_work_bytes" in f.read()
+        src = f.read()
+    if "const int* dyn" in src:
+        return 4
+    return 3 if "mmf_fused_conv_work_bytes" in src else 0
 
 
 def time_ms(fn, reps=20):
@@ -125,12 +132,12 @@ def main() -> int:
         raise SystemExit("forward_ab: CUDA is not available")
     libs = {"other": compile_lib(args.other, "other"),
             "this": compile_lib(_build.SRC_DIR, "this")}
-    runs = {"other": entry(libs["other"], has_stats_interface(args.other)),
-            "this": entry(libs["this"], True)}
+    runs = {k: entry(libs[k], extra_pointers(d))
+            for k, d in (("other", args.other), ("this", _build.SRC_DIR))}
     gen = torch.Generator(device="cuda").manual_seed(0)
     totals = {"other": 0.0, "this": 0.0}
     for key, n in sorted(eval_shapes().items(), key=str):
-        name, xs, ws, sz, relu, affine, _, _ = key
+        name, xs, ws, sz, relu, affine = key[:6]
         x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
         s = b = None
         if affine:

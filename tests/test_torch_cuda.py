@@ -261,3 +261,77 @@ def test_max_pool_first_max_backward_matches_torch(gen):
     torch.nn.functional.max_pool3d(xt, (2, 2, 2)).backward(
         g.permute(0, 4, 1, 2, 3))
     assert torch.equal(xg.grad, xt.grad.permute(0, 2, 3, 4, 1))
+
+
+# --- eval under exact shape bucketing: the extents instance (K7) -----------
+
+# (x shape, taps, z stride, true extents (yt, xt, zt)); the input is random
+# everywhere, so the padding beyond the extents holds garbage
+DYN_CASES = [((2, 5, 13, 45, 16), (1, 3, 3), 1, (4, 11, 38)),
+             ((2, 5, 13, 45, 32), (3, 1, 1), 1, (3, 13, 45)),
+             ((1, 9, 1, 40, 16), (1, 1, 3), 1, (7, 1, 29)),
+             ((2, 3, 5, 37, 24), (1, 1, 1), 1, (3, 2, 20)),
+             ((2, 4, 8, 62, 32), (1, 1, 3), 2, (4, 5, 49)),
+             ((2, 3, 7, 31, 64), (1, 1, 3), 2, (1, 7, 30))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,taps,stride_z,ext", DYN_CASES)
+def test_fused_conv_dyn_kernel_matches_plain(gen, shape, taps, stride_z, ext,
+                                             dtype):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    ci = shape[-1]
+    x, s, b = rnd(*shape), rnd(ci), rnd(ci)
+    w = rnd(*taps, ci, 32) * 0.2
+    name = "fused_conv_dyn_ky3" if taps[0] == 3 else "fused_conv_dyn"
+    before = dict(tfc.launches)
+    y = tfc.fused_conv(x, s, b, w, True, stride_z, dyn_extents=ext)
+    torch.cuda.synchronize()
+    assert tfc.launches[name] == before[name] + 1
+    assert sum(tfc.launches.values()) == sum(before.values()) + 1
+    ref = tfc.fused_conv_dyn_plain(x, s, b, w, True, stride_z, ext)
+    assert y.shape == ref.shape and y.dtype == dtype
+    _assert_close(y, ref, dtype)
+    # the garbage beyond the extents reaches the unmasked conv
+    unmasked = tfc.fused_conv_plain(x, s, b, w, True, stride_z)
+    assert not torch.equal(unmasked, ref)
+
+
+@pytest.mark.cuda
+def test_fused_conv_dyn_whole_extents_equal_the_plain_instance(gen):
+    """Extents covering the whole input give K1's output bit for bit."""
+    x = torch.randn(2, 5, 13, 45, 16, generator=gen, device="cuda")
+    s, b = torch.randn(16, device="cuda"), torch.randn(16, device="cuda")
+    w = torch.randn(1, 3, 3, 16, 32, device="cuda") * 0.2
+    assert torch.equal(tfc.fused_conv(x, s, b, w, True,
+                                      dyn_extents=(5, 13, 45)),
+                       tfc.fused_conv(x, s, b, w, True))
+
+
+@pytest.mark.cuda
+def test_bucketed_model_on_the_card_matches_unpadded(gen):
+    """FPNHybridFusion at the ini widths, fp32: the kernel path on a
+    zero-padded batch with extents, cropped, against the kernel path on
+    the unpadded batch, with every fused conv an extents instance."""
+    from types import SimpleNamespace
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
+                          fusion_modality="slo", number_of_outputs=1)
+    model = build_model(cfg)
+    image = torch.randn(1, 1, 12, 72, 48, generator=gen, device="cuda")
+    slo = torch.randn(1, 1, 88, 1, 48, generator=gen, device="cuda")
+    padded = {"image": F.pad(image, (0, 16, 0, 8, 0, 4)),
+              "slo": F.pad(slo, (0, 16, 0, 0, 0, 8)),
+              "__valid_image__": (12, 72, 48), "__valid_enface__": (88, 48)}
+    with torch.inference_mode():
+        ref = model({"image": image, "slo": slo})["prediction"]
+        ops.reset_launches()
+        got = model(padded)["prediction"]
+        torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    assert launches["fused_conv_dyn"] > 0 and launches["fused_conv_dyn_ky3"]
+    assert launches["fused_conv"] == launches["fused_conv_ky3"] == 0
+    assert got.shape == (1, 1, 16, 1, 64)
+    _assert_close(got[:, :, :12, :, :48], ref, torch.float32)

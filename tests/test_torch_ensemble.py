@@ -22,6 +22,7 @@ from multimodal_fusion_fpn_torch.models.zoo import build_model
 from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
 
 from test_torch_model import _batch, random_trees
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_MEMBERS = 3
 

@@ -25,6 +25,8 @@ from multimodal_fusion_fpn_torch.models.zoo import build_model
 from multimodal_fusion_fpn_torch.weights import (init_state_dict,
                                                  state_dict_from_jax)
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -220,9 +222,9 @@ def test_kernel_routing_counts_per_member(monkeypatch):
     seen = {"k1": 0, "k2": 0, "pool": 0, "first_max": 0}
     real_conv, real_pool = tblocks.fused_conv, tenc.max_pool3d_cl
 
-    def conv_spy(x, s, b, w, relu, stride_z=1):
+    def conv_spy(x, s, b, w, relu, stride_z=1, dyn_extents=None):
         seen["k2" if w.shape[0] == 3 else "k1"] += 1
-        assert w.shape[3] >= 8 and w.shape[4] <= 64
+        assert w.shape[3] >= 8 and w.shape[4] <= 64 and dyn_extents is None
         return real_conv(x, s, b, w, relu, stride_z)
 
     def pool_spy(x, window, first_max=False):

@@ -33,6 +33,8 @@ from multimodal_fusion_fpn_torch.ops.interpolate import linear_resize
 from multimodal_fusion_fpn_torch.ops.pooling import adaptive_max_pool
 from multimodal_fusion_fpn_torch.ops.upsample import upsample_nearest
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -482,6 +484,10 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
             tfc.fused_conv_bwd(x, s, b, w, g, True),
             tfc.fused_conv_bwd_plain(x, s, b, w, g, True)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        tfc.fused_conv(x, s, b, w, True, dyn_extents=(1, 2, 5)),
+        tfc.fused_conv_dyn_plain(x, s, b, w, True, 1, (1, 2, 5)),
+        rtol=0, atol=0)
     xp = tpool.max_pool3d_cl(x, (1, 1, 2))
     torch.testing.assert_close(
         tpool.max_pool3d_cl_bwd(x, xp, xp, (1, 1, 2)),
@@ -494,8 +500,8 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
     assert set(launches) == {
         "fused_conv", "fused_conv_ky3", "fused_conv_stats",
         "fused_conv_ky3_stats", "fused_conv_dgrad", "fused_conv_wgrad",
-        "fused_conv_ky3_dgrad", "fused_conv_ky3_wgrad", "max_pool3d_cl",
-        "max_pool3d_cl_bwd"}
+        "fused_conv_ky3_dgrad", "fused_conv_ky3_wgrad", "fused_conv_dyn",
+        "fused_conv_dyn_ky3", "max_pool3d_cl", "max_pool3d_cl_bwd"}
     assert not any(launches.values()), launches
     assert not tfc.calls and not tpool.calls
 
