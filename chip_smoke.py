@@ -89,11 +89,35 @@ Phases, each of which fails the run on any error:
    on the kernel path and on ``kernels=False`` (best of two, in turns),
    the card's busy share and its largest kernels.  The launch counts of
    that kernel-path run are K7's.
-7. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+7. Eval block fusion (K8: ``block_fusion`` "chain", the whole block in
+   one kernel, and "pair", two convs in one kernel).  (a) The chain and
+   pair kernels against their plain versions at every call shape of one
+   member's forward, at the crop shapes and at the bucketed shapes (the
+   padding full of garbage, which the unmasked plain version must show),
+   with phase 2's tolerances; each shape line has the kernel's time, the
+   plain version's (cuDNN per op), the per-conv kernel path's (K1/K2/K7
+   on the same block: ``fused_chain_per_conv``), the bound and the share
+   of the kernel's work that its halos recompute.  (b) On the same inputs,
+   the kernel against the per-conv kernel path: fp32 max-abs-err <= 1e-5 *
+   max|y|, bf16 cosine >= 0.9999 and norm ratio within 1%, and whether
+   they are bit-equal.  (c) The 5-member ensemble at the crop shapes, bf16
+   B=4 and fp32 B=1, under each fusion against the per-conv kernel path
+   (fp32 1e-5 * max|y|, bf16 cosine >= 0.9995 and norm ratio within 1%)
+   and against ``kernels=False`` (phase 3's bounds), with the launches
+   per member of the CPU routing test (``K8_PER_MEMBER``).  (d) The
+   bucketed ensemble under each fusion, cropped, against its unpadded run
+   (phase 6's bounds) and the planted wrong-extents control under the
+   chain, which must fail.  (e) bf16 images/s of the crop-shape ensemble
+   on four paths (plain, per-conv kernels, pair, chain) and the serving
+   rate of ``evaluate`` on the same four, with the busy share and the
+   largest kernels; the launch counts of the serving runs under "chain"
+   and "pair" are the extents instances'.
+8. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
-   kernels and the bucketed serving run for K7; max-abs-err of its fp32
-   comparisons; per-step times summed over the bf16 B=4 calls), the card
-   line, and last the ``{"ok": true, "device": ...}`` line.
+   kernels, the bucketed serving run for K7 and the fused runs of phase 7
+   for K8; max-abs-err of its fp32 comparisons; per-step times summed
+   over the bf16 B=4 calls), the card line, and last the ``{"ok": true,
+   "device": ...}`` line.
 
 Exits non-zero, printing no result, without CUDA or without the package.
 """
@@ -138,6 +162,7 @@ SPACING = (0.12, 0.0039, 0.0117)   # mm per (D, H, W) voxel
 _FC = "multimodal_fusion_fpn_torch/csrc/fused_conv.cu"
 _FCB = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd.cu"
 _POOL = "multimodal_fusion_fpn_torch/csrc/pool.cu"
+_FB = "multimodal_fusion_fpn_torch/csrc/fused_block.cu"
 _TPU_FC = "multimodal_fusion_fpn_tpu/ops/pallas/fused_conv.py"
 _TPU_POOL = "multimodal_fusion_fpn_tpu/ops/pallas/pool.py"
 # name -> (source, the TPU kernel it replaces, the step whose run counts)
@@ -154,8 +179,22 @@ KERNELS = {
     "max_pool3d_cl_bwd": (_POOL, f"{_TPU_POOL}:132", "train"),
     "fused_conv_dyn": (_FC, f"{_TPU_FC}:445", "bucketed"),
     "fused_conv_dyn_ky3": (_FC, f"{_TPU_FC}:2594", "bucketed"),
+    "fused_chain": (_FB, f"{_TPU_FC}:1445", "chain"),
+    "fused_pair": (_FB, f"{_TPU_FC}:1294", "pair"),
+    "fused_chain_dyn": (_FB, f"{_TPU_FC}:1445", "bucketed_chain"),
+    "fused_pair_dyn": (_FB, f"{_TPU_FC}:1294", "bucketed_pair"),
 }
 TRAIN_KERNELS = [k for k, v in KERNELS.items() if v[2] == "train"]
+# the records of each path's kernel checks carry this tag prefix
+RECORD_PREFIX = {"bucketed": "bucketed_", "chain": "k8_", "pair": "k8_",
+                 "bucketed_chain": "k8_", "bucketed_pair": "k8_"}
+K8_MODES = ("chain", "pair")
+# launches per member under each block fusion (the CPU routing test,
+# tests/test_torch_fused_block.py)
+K8_PER_MEMBER = {"chain": {"fused_chain": 5, "fused_conv": 23,
+                           "fused_conv_ky3": 3},
+                 "pair": {"fused_pair": 5, "fused_conv": 25,
+                          "fused_conv_ky3": 6}}
 
 
 def emit(obj):
@@ -671,6 +710,256 @@ def serving_rate(step, card):
             "launches": launches, "card": card}, launches
 
 
+def block_inputs(key, gen):
+    """Random inputs of one recorded fused_chain / fused_pair call: (x,
+    s_in, b_in, relu0, convs, ds)."""
+    import torch
+    _, xs, wshapes, final, relu0, entry, dts, _ = key
+    dt = _dtype(dts)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    ci, co = xs[-1], wshapes[0][-1]
+
+    def affine(n):
+        return ((0.5 + torch.rand(n, generator=gen, device="cuda")).to(dt),
+                (0.5 * rnd(n)).to(dt))
+
+    s_in, b_in = affine(ci) if entry else (None, None)
+    convs = [((rnd(*ws) / float(np.prod(ws[:4])) ** 0.5).to(dt),
+              *affine(co)) for ws in wshapes]
+    ds = None
+    if final == "res_conv":
+        ds = ((rnd(1, 1, 1, ci, co) / ci ** 0.5).to(dt), *affine(co))
+    return rnd(*xs).to(dt), s_in, b_in, relu0, convs, ds
+
+
+def block_cost(xs, wshapes, final, esize):
+    """(bytes, flops) of one whole-block call: x, the weights and affines
+    read once, y written once; 2 * voxels * taps * ci * co per conv (and
+    the 1x1 downsample)."""
+    n_vox = int(np.prod(xs[:4]))
+    ci, co = xs[-1], wshapes[0][-1]
+    flops = sum(2.0 * n_vox * float(np.prod(ws[:4])) * co for ws in wshapes)
+    params = sum(int(np.prod(ws)) + 2 * co for ws in wshapes)
+    if final == "res_conv":
+        flops += 2.0 * n_vox * ci * co
+        params += ci * co + 2 * co
+    return (n_vox * (ci + co) + params) * esize, flops
+
+
+def recompute_share(xs, wshapes, tile):
+    """The share of the kernel's conv work beyond the block's own: the
+    conv-0 halo in x and z, the two halo rows of each y chunk, and the
+    tiles' overhang past X and Z (``tile`` = (TX, G, ...), the plan)."""
+    TX, G = tile[:2]
+    B, Y, X, Z, ci = xs
+    co = wshapes[0][-1]
+    ky3 = len(wshapes) == 3
+    rows = sum(min(Y, y0 + G + ky3) - max(0, y0 - ky3)
+               for y0 in range(0, Y, G))
+    tiles = B * -(-X // TX) * -(-Z // 32)
+    done = tiles * (rows * ((TX + 2) * 34 * 9 * ci * co
+                            + TX * 32 * 9 * co * co)
+                    + (Y * TX * 32 * 3 * co * co if ky3 else 0))
+    useful = B * Y * X * Z * (9 * ci * co + 9 * co * co
+                              + (3 * co * co if ky3 else 0))
+    return done / useful - 1
+
+
+def check_block_shape(key, n_calls, gen):
+    """(a) and (b) of phase 7 at one recorded chain or pair call."""
+    import torch
+    from multimodal_fusion_fpn_torch.ops import fused_block as fb
+    name, xs, wshapes, final, _, _, dts, ext = key
+    dt = _dtype(dts)
+    x, s_in, b_in, relu0, convs, ds = block_inputs(key, gen)
+    if name.startswith("fused_pair"):
+        args = (x, s_in, b_in, convs[0][0], convs[0][1], convs[0][2],
+                convs[1][0], relu0)
+        fns = (fb.fused_pair, fb.fused_pair_plain, fb.fused_pair_per_conv)
+    else:
+        args = (x, s_in, b_in, relu0, convs, final, ds)
+        fns = (fb.fused_chain, fb.fused_chain_plain, fb.fused_chain_per_conv)
+    run, plain, per_conv = (lambda f=f: f(*args, dyn_extents=ext)
+                            for f in fns)
+    y = run()
+    ok, stats = compare(y, plain(), dt)
+    same = torch.equal(y, run())
+    pc = per_conv()
+    ok_pc, st_pc = compare_bucketed(y, pc, dt)
+    whole = ext is None or tuple(ext) == tuple(xs[1:4])
+    garbage_shows = whole or not compare(fns[1](*args), plain(), dt)[0]
+    nbytes, flops = block_cost(xs, wshapes, final, x.element_size())
+    b_ms, b_by = bound(nbytes, flops, dts)
+    tile = fb.plan(x, len(wshapes), wshapes[0][-1])
+    return dict(kernel=name, dtype=dts, x=list(xs),
+                w=[list(w) for w in wshapes], final=final, relu0=relu0,
+                affine=s_in is not None,
+                extents=None if ext is None else list(ext),
+                calls_per_step=n_calls, flop=flops, bytes=nbytes,
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
+                tile_x=tile[0], chunk_rows=tile[1], smem_bytes=tile[2],
+                blocks=tile[3],
+                recompute_share=recompute_share(xs, wshapes, tile),
+                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
+                per_conv_ms=time_ms(per_conv), library_ms=None,
+                bound_ms=b_ms, bound_by=b_by,
+                ok=ok and same and ok_pc and garbage_shows,
+                bitwise_repeatable=same, garbage_shows=garbage_shows,
+                vs_per_conv=dict(st_pc, ok=ok_pc,
+                                 bit_equal=torch.equal(y, pc)), **stats)
+
+
+def timed_named(run, paths, reps=3):
+    """Best-of-four ms of ``run(**kw)`` per named path (name, kw), the
+    paths taken in turns, and the profiler's busy time and top kernels per
+    path."""
+    times = {}
+    order = list(paths) + list(reversed(paths))
+    for name, kw in order * 2:
+        times.setdefault(name, []).append(
+            time_ms(lambda: run(**kw), reps=reps, warm=0))
+    busy = {name: trace_step(lambda: run(**kw)) for name, kw in paths}
+    return {name: {"ms": min(times[name]), "runs": times[name],
+                   "device_busy_ms": busy[name][0],
+                   "device_busy_share": busy[name][0] / min(times[name]),
+                   "top_device_kernels": busy[name][1]}
+            for name, _ in paths}
+
+
+K8_PATHS = (("plain", {"kernels": False}), ("per_conv", {}),
+            ("pair", {"block_fusion": "pair"}),
+            ("chain", {"block_fusion": "chain"}))
+
+
+def k8_ensemble(tag, dt, B, model, sds, card):
+    """Phase 7 (c), and (e)'s ensemble rates for bf16: (ok, record, the
+    launches of each fused path's step)."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.eval.ensemble import \
+        make_ensemble_eval_step
+    step = make_ensemble_eval_step(model, sds)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_batch(B, 1).items() if k != "mask"}
+
+    def pred(**kw):
+        out = step(batch, **kw)["prediction"]
+        torch.cuda.synchronize()
+        return out
+
+    per_conv = pred().float() - 0.5
+    plain = pred(kernels=False).float() - 0.5
+    ok, rec, launches = True, {}, {}
+    for mode in K8_MODES:
+        pred(block_fusion=mode)
+        ops.reset_launches()
+        got = pred(block_fusion=mode)
+        launches[mode] = ops.kernel_launches()
+        got = got.float() - 0.5
+        ok_pc, st_pc = compare_bucketed(got, per_conv, dt, bf16_cos=0.9995)
+        ok_p, st_p = compare(got, plain, dt)
+        counted = all(launches[mode][k] == MEMBERS * n
+                      for k, n in K8_PER_MEMBER[mode].items())
+        shape_ok = got.shape == (B, 1, OCT_YZX[0], 1, OCT_YZX[2])
+        rec[mode] = {"ok": ok_pc and ok_p and counted and shape_ok,
+                     "vs_per_conv": dict(st_pc, ok=ok_pc,
+                                         bit_equal=bool(torch.equal(
+                                             got, per_conv))),
+                     "vs_plain": dict(st_p, ok=ok_p),
+                     "launches": launches[mode], "launches_match": counted}
+        ok &= rec[mode]["ok"]
+    out = {"phase": "k8_e2e", "config": tag, "members": MEMBERS,
+           "batch": B, "ok": ok, **rec, "card": card}
+    if dt == torch.bfloat16:
+        rates = timed_named(lambda **kw: step(batch, **kw), K8_PATHS)
+        for r in rates.values():
+            r["img_per_s"] = B * 1e3 / r["ms"]
+        out["rates"] = rates
+    return ok, out, launches
+
+
+def k8_bucketed(tag, dt, B, model, sds):
+    """Phase 7 (d): (ok, record)."""
+    import torch
+    from multimodal_fusion_fpn_torch.eval.ensemble import \
+        make_ensemble_eval_step
+    from multimodal_fusion_fpn_torch.eval.harness import bucket_pad
+    step = make_ensemble_eval_step(model, sds)
+    batch = serving_batch(B, 6)
+    model_in = {k: batch[k] for k in ("image", "slo")}
+    padded = bucket_pad(model_in, BUCKET)
+    bad = dict(padded, __valid_image__=np.asarray(padded["image"].shape[2:]),
+               __valid_enface__=np.asarray(padded["slo"].shape[2::2]))
+    Y, X = SERVE_OCT[0][0], SERVE_OCT[0][2]
+
+    def pred(b, mode):
+        out = step(b, block_fusion=mode)["prediction"]
+        torch.cuda.synchronize()
+        return out[:, :, :Y, :, :X].float() - 0.5
+
+    ok, rec = True, {}
+    per_conv = pred(padded, None)
+    for mode in K8_MODES:
+        got, unpadded = pred(padded, mode), pred(model_in, mode)
+        ok_u, st_u = compare_bucketed(got, unpadded, dt)
+        rec[mode] = {"vs_unpadded": dict(st_u, ok=ok_u),
+                     "vs_per_conv_padded": compare(got, per_conv, dt)[1]}
+        ok &= ok_u
+        if mode == "chain":
+            ok_c, st_c = compare_bucketed(pred(bad, mode), unpadded, dt)
+            rec[mode]["control_padded_extents"] = dict(st_c, ok=ok_c)
+            rec[mode]["control_caught"] = not ok_c
+            ok &= not ok_c
+    return ok, {"phase": "k8_bucketed", "config": tag, "batch": B,
+                "ok": ok, **rec}
+
+
+def k8_serving(step, card):
+    """Phase 7 (e), serving: ``evaluate`` over SERVE_IMAGES images on the
+    four paths; (record, the launches of the chain and pair runs)."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.eval.harness import evaluate
+    batches = []
+    for i in range(SERVE_IMAGES):
+        b = serving_batch(1, 100 + i, shape=i * 2 // SERVE_IMAGES)
+        b["FileSetId"] = [f"image{i}"]
+        batches.append(b)
+
+    def run(kernels=True, block_fusion=None):
+        t0 = time.time()
+        rows, _ = evaluate(
+            lambda b, sp=None, **kw: step(b, sp, kernels=kernels, **kw),
+            batches, hrf_metrics(), BUCKET, SERVE_BATCH,
+            block_fusion=block_fusion)
+        torch.cuda.synchronize()
+        return time.time() - t0, rows
+
+    for _, kw in K8_PATHS:
+        run(**kw)
+    launches, dice = {}, {}
+    for mode in K8_MODES:
+        ops.reset_launches()
+        _, rows = run(block_fusion=mode)
+        launches[mode] = ops.kernel_launches()
+        dice[mode] = [r["Dice"] for r in rows]
+    times = {}
+    for name, kw in list(K8_PATHS) + list(reversed(K8_PATHS)):
+        times.setdefault(name, []).append(run(**kw)[0])
+    busy = {name: trace_step(lambda: run(**kw)) for name, kw in K8_PATHS}
+    rec = {"phase": "k8_serving", "images": SERVE_IMAGES,
+           "eval_batch": SERVE_BATCH, "bucket": BUCKET, "card": card,
+           "dice": dice, "launches": launches}
+    for name, _ in K8_PATHS:
+        best = min(times[name])
+        rec[name] = {"img_per_s": SERVE_IMAGES / best,
+                     "seconds_runs": times[name],
+                     "device_busy_ms": busy[name][0],
+                     "device_busy_share": busy[name][0] / 1e3 / best,
+                     "top_device_kernels": busy[name][1]}
+    return rec, launches
+
+
 def member_state_dicts(model, n):
     """Seeded weights (the package's init) with seeded non-trivial
     BatchNorm affines and running stats, so no prologue is the identity."""
@@ -1013,7 +1302,8 @@ def main() -> int:
     from multimodal_fusion_fpn_torch.eval.ensemble import \
         make_ensemble_eval_step
     from multimodal_fusion_fpn_torch.models.zoo import build_model
-    from multimodal_fusion_fpn_torch.ops import _build, fused_conv, pool
+    from multimodal_fusion_fpn_torch.ops import (_build, fused_block,
+                                                 fused_conv, pool)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1021,7 +1311,7 @@ def main() -> int:
     t_start = time.time()
 
     # --- 1. build ---------------------------------------------------------
-    libs = ["fused_conv", "fused_conv_bwd", "pool"]
+    libs = ["fused_conv", "fused_conv_bwd", "pool", "fused_block"]
     _build.build(libs)
     for name in libs:
         _build.load(name)
@@ -1325,10 +1615,67 @@ def main() -> int:
     del models
     torch.cuda.empty_cache()
 
-    # --- 7. summary -------------------------------------------------------
+    # --- 7. eval block fusion (K8) ----------------------------------------
+    n_bad = len(failures)
+    models = {tag: build_model(cfg, dtype=dt) for tag, dt, _ in configs}
+    for tag, dt, B in configs:
+        model = models[tag]
+        model.load_state_dict(sds[0])
+        crop = {k: torch.from_numpy(v).cuda()
+                for k, v in make_batch(B, 0).items()}
+        b = serving_batch(B, 7)
+        padded = {k: torch.as_tensor(v, device="cuda")
+                  if not k.startswith("__") else v
+                  for k, v in bucket_pad({k: b[k] for k in ("image", "slo")},
+                                         BUCKET).items()}
+        k8_calls = {}
+        for inputs in (crop, padded):
+            for mode in K8_MODES:
+                ops.reset_launches()
+                with torch.inference_mode():
+                    model(inputs, block_fusion=mode)
+                torch.cuda.synchronize()
+                k8_calls.update(fused_block.calls)
+        emit({"phase": "k8_shapes", "config": tag,
+              "calls_per_member": [[list(map(str, k)), n]
+                                   for k, n in sorted(k8_calls.items(),
+                                                      key=str)]})
+        for key, n in sorted(k8_calls.items(), key=str):
+            rec = check_block_shape(key, MEMBERS * n, gen)
+            records[("k8_" + tag, key)] = rec
+            emit(rec)
+    bad = [r for (tag, _), r in records.items()
+           if tag.startswith("k8_") and not r["ok"]]
+    if bad:
+        failures.append(f"{len(bad)} chain/pair kernel checks failed: "
+                        f"{sorted({r['kernel'] for r in bad})}")
+    for tag, dt, B in configs:
+        ok, rec, launches = k8_ensemble(tag, dt, B, models[tag], sds, card)
+        emit(rec)
+        if tag == "bf16_B4":
+            main_launches.update(launches)
+        if not ok:
+            failures.append(f"k8 ensemble {tag}: "
+                            + ", ".join(f"{m} {rec[m]['ok']}"
+                                        for m in K8_MODES))
+        ok, rec = k8_bucketed(tag, dt, B, models[tag], sds)
+        emit(rec)
+        if not ok:
+            failures.append(f"k8 bucketed {tag}: {rec}")
+    rec, launches = k8_serving(ensemble_step(models["bf16_B4"], sds,
+                                             with_hd=True), card)
+    emit(rec)
+    main_launches["bucketed_chain"] = launches["chain"]
+    main_launches["bucketed_pair"] = launches["pair"]
+    emit({"phase": "k8_done", "ok": len(failures) == n_bad,
+          "seconds": time.time() - t_start})
+    del models
+    torch.cuda.empty_cache()
+
+    # --- 8. summary -------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
-        prefix = "bucketed_" if path == "bucketed" else ""
+        prefix = RECORD_PREFIX.get(path, "")
         main = [r for (tag, _), r in records.items()
                 if tag == prefix + "bf16_B4" and r["kernel"] == name]
         fp32 = [r for (tag, _), r in records.items()
@@ -1338,6 +1685,7 @@ def main() -> int:
         t_ops = sum(r["calls_per_step"] * r["bound_ms"]
                     for r in main if r["bound_by"] != "bytes")
         launches = main_launches[path][name]
+        lib = [r["library_ms"] for r in main]
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "step": path, "launches": launches,
@@ -1352,7 +1700,10 @@ def main() -> int:
             "bound_cuda_cores_ms": sum(
                 r["calls_per_step"] * r.get("bound_cuda_cores_ms",
                                             r["bound_ms"]) for r in main),
-            "library_ms": per_step(main, "library_ms")})
+            "library_ms": (None if None in lib
+                           else per_step(main, "library_ms"))})
+        if main and "per_conv_ms" in main[0]:
+            summary[-1]["per_conv_ms"] = per_step(main, "per_conv_ms")
         if launches <= 0:
             failures.append(f"{name} was not launched on the {path} path")
     emit({"phase": "done", "seconds": time.time() - t_start})

@@ -37,8 +37,9 @@ def _hd_pair(pred2d, gt2d, spacing):
 def make_ensemble_eval_step(model: nn.Module,
                             state_dicts: Sequence[Mapping[str, torch.Tensor]],
                             device="cuda", with_hd: bool = False) -> Callable:
-    """``step(batch, spacing=None, kernels=True) -> {'prediction': mean
-    over members}``.
+    """``step(batch, spacing=None, kernels=True, block_fusion=None) ->
+    {'prediction': mean over members}`` (``block_fusion``: None, "pair" or
+    "chain", the model's eval block fusion).
 
     ``batch`` maps names to arrays or tensors in the reference layout; they
     are moved to ``device``, except the reserved extent keys, which are
@@ -51,11 +52,13 @@ def make_ensemble_eval_step(model: nn.Module,
                for sd in state_dicts]
 
     @torch.inference_mode()
-    def ensemble_step(batch, spacing=None, kernels: bool = True):
+    def ensemble_step(batch, spacing=None, kernels: bool = True,
+                      block_fusion=None):
         b = {k: v if k.startswith("__valid_")
              else torch.as_tensor(v, device=device) for k, v in batch.items()}
-        preds = [functional_call(model, sd, (b,), {"kernels": kernels})
-                 ["prediction"] for sd in members]
+        kw = {"kernels": kernels, "block_fusion": block_fusion}
+        preds = [functional_call(model, sd, (b,), kw)["prediction"]
+                 for sd in members]
         mean = torch.stack(preds).float().mean(dim=0)
         out = {"prediction": mean.to(preds[0].dtype)}
         if not with_hd:

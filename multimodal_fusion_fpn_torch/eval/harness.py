@@ -17,7 +17,7 @@ artifacts (PNGs, CSV, JSON), the global metrics and the twin of
 ``validate_ensemble.py``.
 """
 
-from typing import Callable, Dict, Iterable, List, Mapping, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,14 +97,18 @@ def _host(v):
 
 def evaluate(step: Callable, batches: Iterable[Mapping],
              metrics_val: Mapping, shape_bucket: int = 64,
-             eval_batch: int = 1) -> Tuple[List[Dict], Dict]:
+             eval_batch: int = 1,
+             block_fusion: Optional[str] = None) -> Tuple[List[Dict], Dict]:
     """Run the ensemble ``step`` (``eval.ensemble.make_ensemble_eval_step``,
     built ``with_hd`` when a metric has ``device=True``) over ``batches``:
     dicts of numpy arrays in the reference layout with B = 1 and a
     ``FileSetId``.  ``shape_bucket`` 0 runs each image at its own shape.
-    Returns (the metrics rows in input order, {FileSetId: Dice})."""
+    ``block_fusion`` (None, "pair" or "chain") goes to the step as its
+    keyword when it is given.  Returns (the metrics rows in input order,
+    {FileSetId: Dice})."""
     use_hd_device = any(getattr(m, "device", False)
                         for m in metrics_val.values())
+    kw = {} if block_fusion is None else {"block_fusion": block_fusion}
     results, results_dict = [], {}
     pending = []   # (batch, model input, true (Y, X), spacing)
 
@@ -118,9 +122,9 @@ def evaluate(step: Callable, batches: Iterable[Mapping],
                  for k in first}
         if use_hd_device:
             sps = np.stack([p[3] for p in pending])
-            out = step(group, sps if len(pending) > 1 else sps[0])
+            out = step(group, sps if len(pending) > 1 else sps[0], **kw)
         else:
-            out = step(group)
+            out = step(group, **kw)
         out = {k: _host(v) for k, v in out.items()}
         n = len(pending)
         for i, (batch, _, true_yx, _) in enumerate(pending):

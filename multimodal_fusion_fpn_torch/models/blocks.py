@@ -46,6 +46,15 @@ downsample of both stage 1s, which the JAX package computes with XLA).
 Stages 4-5, the strided 1x1 downsample of the cascades, the ``fully``
 convs, the decoder and ``final1`` run the plain version (cuDNN on the
 card), as they run XLA convolutions in the JAX package.
+
+Eval block fusion (``block_fusion``, the JAX package's ``MMF_FUSED_PAIR``
+/ ``MMF_FUSED_CHAIN``, read there from the environment and here passed as
+an argument): "pair" runs each two consecutive kY = 1 convs of a block as
+one kernel (``ops.fused_block.fused_pair``), "chain" the whole block
+(``fused_chain``: its convs, the residual and the final ReLU).  Both only
+in eval, where every BatchNorm affine is a constant, and only on the 3D
+blocks of the fused stages; with ``kernels`` False they run their plain
+versions (``ConvX._fusion``).
 """
 
 
@@ -56,6 +65,10 @@ import torch
 from torch import nn
 
 from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
+from multimodal_fusion_fpn_torch.ops.fused_block import (fused_chain,
+                                                         fused_chain_plain,
+                                                         fused_pair,
+                                                         fused_pair_plain)
 from multimodal_fusion_fpn_torch.ops.fused_conv import (affine_relu,
                                                         channel_sums,
                                                         conv3d_cl,
@@ -267,30 +280,99 @@ class ConvX(nn.Module):
                                self.stride_z, self.padding == "valid")
         return ext
 
+    def _fusion(self, block_fusion: Optional[str], ci: int):
+        """(the fusion that applies, narrow entry): the eval fusion of the
+        JAX package's ``MMF_FUSED_CHAIN`` / ``MMF_FUSED_PAIR`` applies where
+        it applies there (``blocks.py:542-660``): in eval, to a 3D block of a
+        fused stage at z stride 1 (not to the 2D stages or the stride-2
+        cascades), the chain when at least two convs follow a narrow (ci <
+        8) entry, which an identity-residual block never has."""
+        if block_fusion not in (None, "pair", "chain"):
+            raise ValueError(f"ConvX: unknown block_fusion {block_fusion!r}")
+        if (block_fusion is None or self.training or not self.fused
+                or self.stride_z != 1 or self.padding != "same"
+                or self.convBlock[0][0].weight.dim() != 5):
+            return None, False
+        narrow = ci < 8 and not (self.residual and self.downsample is None)
+        if block_fusion == "chain" and len(self.convBlock) - narrow < 2:
+            return None, narrow
+        return block_fusion, narrow
+
+    def _residual(self, out, x, kernels, ext):
+        """``out`` plus the block's residual of input ``x``."""
+        if not self.residual:
+            return out
+        if self.downsample is None:
+            return out + x
+        conv, bn = self.downsample
+        dt = x.dtype
+        ds, sums = self._conv(x, None, None, conv.logical(dt), False,
+                              self.ds_stride_z,
+                              kernels and self.ds_stride_z == 1, ext)
+        sd, bd = bn.folded(dt, ds, sums)
+        return out + ds * sd + bd
+
+    def _chain(self, x, kernels, ext, narrow):
+        """The whole block in one kernel (``fused_chain``), or its plain
+        version with ``kernels`` False.  A narrow entry conv runs before it
+        as in the per-op path, and the chain stops at the last affine."""
+        dt = x.dtype
+        layers = [(conv.logical(dt), *bn.folded(dt))
+                  for conv, bn in self.convBlock]
+        dyn = None if ext is None else _full(ext, x)
+        xin, s_in, b_in, relu0, ds = x, None, None, False, None
+        if narrow:
+            xin, _ = self._conv(x, None, None, layers[0][0], False, 1,
+                                kernels, ext)
+            _, s_in, b_in = layers[0]
+            relu0, layers, final = True, layers[1:], "affine"
+        elif self.downsample is not None:
+            conv, bn = self.downsample
+            final, ds = "res_conv", (conv.logical(dt), *bn.folded(dt))
+        else:
+            final = "res_id" if self.residual else "relu"
+        chain = fused_chain if kernels else fused_chain_plain
+        out = chain(xin, s_in, b_in, relu0, layers, final, ds, dyn)
+        if final == "affine":
+            out = mask_extents(
+                torch.relu(self._residual(out, x, kernels, ext)), ext)
+        return out
+
     def forward(self, x: torch.Tensor, kernels: bool = True,
-                ext: Extents = None) -> torch.Tensor:
+                ext: Extents = None,
+                block_fusion: Optional[str] = None) -> torch.Tensor:
+        """``block_fusion``: None (per conv), "pair" or "chain" (the eval
+        fusion of ``ops.fused_block``, where it applies: ``_fusion``)."""
         if ext is not None and self.training:
             raise ValueError("ConvX: true extents are eval-only")
+        fusion, narrow = self._fusion(block_fusion, x.shape[-1])
+        if fusion == "chain":
+            return self._chain(x, kernels, ext, narrow)
         dt = x.dtype
         cur, s, b, e = x, None, None, ext
-        for i, (conv, bn) in enumerate(self.convBlock):
+        n, i = len(self.convBlock), 0
+        while i < n:
+            conv, bn = self.convBlock[i]
             w = conv.logical(dt)
+            if (fusion == "pair" and i + 1 < n and w.shape[0] == 1
+                    and self.convBlock[i + 1][0].taps[0] == 1
+                    and not (i == 0 and narrow)):
+                # two convs in one kernel; their extents stay (stride 1)
+                conv1, bn1 = self.convBlock[i + 1]
+                s_mid, b_mid = bn.folded(dt)
+                pair_fn = fused_pair if kernels else fused_pair_plain
+                cur = pair_fn(cur, s, b, w, s_mid, b_mid, conv1.logical(dt),
+                              i > 0, None if e is None else _full(e, cur))
+                s, b = bn1.folded(dt)
+                i += 2
+                continue
             cur, sums = self._conv(cur, s, b, w, i > 0, self.stride_z,
                                    kernels, e)
             e = conv_extents(e, w.shape[:3], self.stride_z,
                              self.padding == "valid")
             s, b = bn.folded(dt, cur, sums)
-        out = cur * s + b
-        if self.residual:
-            if self.downsample is not None:
-                conv, bn = self.downsample
-                ds, sums = self._conv(x, None, None, conv.logical(dt), False,
-                                      self.ds_stride_z,
-                                      kernels and self.ds_stride_z == 1, ext)
-                sd, bd = bn.folded(dt, ds, sums)
-                out = out + ds * sd + bd
-            else:
-                out = out + x
+            i += 1
+        out = self._residual(cur * s + b, x, kernels, ext)
         return mask_extents(torch.relu(out), e)
 
 
@@ -311,14 +393,16 @@ class EncoderStage(nn.ModuleList):
         self.ndim = ndim
 
     def forward(self, x: torch.Tensor, kernels: bool = True,
-                ext: Extents = None) -> torch.Tensor:
-        """``ext``: the true (y, x, z) of a 3D input, (h, w) of a 2D one."""
+                ext: Extents = None,
+                block_fusion: Optional[str] = None) -> torch.Tensor:
+        """``ext``: the true (y, x, z) of a 3D input, (h, w) of a 2D one.
+        ``block_fusion``: the eval fusion of the 3D blocks (``ConvX``)."""
         if self.ndim == 2:
             x = x.unsqueeze(2)
             if ext is not None:
                 ext = (ext[0], None, ext[1])
         for block in self:
-            x = block(x, kernels, ext)
+            x = block(x, kernels, ext, block_fusion)
         return x.squeeze(2) if self.ndim == 2 else x
 
 

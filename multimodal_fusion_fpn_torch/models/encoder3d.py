@@ -52,12 +52,14 @@ def proj_depth_ext(ext: Optional[tuple], num_reductions: int,
 
 
 def run_3d_encoder(stages: Sequence[torch.nn.Module], x: torch.Tensor,
-                   pools, kernels: bool = True, ext=None):
+                   pools, kernels: bool = True, ext=None,
+                   block_fusion: Optional[str] = None):
     """Per-level PRE-POOL stage outputs, each (B, Y, X, Z, C), and each
-    level's true (y, x, z) extents (all None outside bucketing)."""
+    level's true (y, x, z) extents (all None outside bucketing).
+    ``block_fusion``: the stages' eval block fusion (``blocks.ConvX``)."""
     convs, exts = [], []
     for lvl, stage in enumerate(stages):
-        x = stage(x, kernels, ext)
+        x = stage(x, kernels, ext, block_fusion)
         convs.append(x)
         exts.append(ext)
         if lvl < len(stages) - 1:

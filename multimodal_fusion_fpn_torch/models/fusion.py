@@ -92,17 +92,19 @@ class ModifiedUnet3D2D(nn.Module):
         self.final1 = Conv1x1(ch[0], n_classes)
 
     def forward(self, volume: torch.Tensor, enface: torch.Tensor,
-                kernels: bool = True, ext3d=None,
-                ext2d=None) -> torch.Tensor:
+                kernels: bool = True, ext3d=None, ext2d=None,
+                block_fusion: Optional[str] = None) -> torch.Tensor:
         """volume (B, Y, X, Z, 1), enface (B, H, W, 1) ->
         (B, Y, X, 1, n_classes).  ``ext3d`` (y, x, z) / ``ext2d`` (h, w):
-        the true extents of the zero-padded inputs, or None."""
+        the true extents of the zero-padded inputs, or None.
+        ``block_fusion``: None, "pair" or "chain", the eval block fusion
+        of the 3D encoder stages (``blocks.ConvX``)."""
         skips2d, exts2d = run_2d_encoder(
             [getattr(self, f"conv{i + 1}_2d") for i in range(5)], enface,
             POOLS_2D, kernels, ext2d)
         skips3d, exts = run_3d_encoder(
             [getattr(self, f"conv{i + 1}") for i in range(5)], volume,
-            POOLS_3D, kernels, ext3d)
+            POOLS_3D, kernels, ext3d, block_fusion)
         projected = []
         for i, s in enumerate(skips3d):
             p = getattr(self, f"zdimRed{i + 1}")(s, kernels, exts[i])

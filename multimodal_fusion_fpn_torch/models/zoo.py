@@ -5,7 +5,9 @@ The model takes the batch dict in the original project's layout and
 returns ``{'prediction': sigmoid(logits)}`` in that layout
 (:mod:`.layouts`), in eval or train mode (BatchNorm batch stats).
 ``kernels`` chooses the hand-written kernels (True) or their plain PyTorch
-versions (False); nothing switches it automatically.
+versions (False); nothing switches it automatically.  ``block_fusion``
+(None, "pair" or "chain") is the eval block fusion of the JAX package's
+``MMF_FUSED_PAIR`` / ``MMF_FUSED_CHAIN`` (``blocks.ConvX``).
 
 Exact shape bucketing: the reserved batch keys ``__valid_image__`` (the
 true (D, H, W) of the zero-padded ``image``) and ``__valid_enface__`` (the
@@ -69,7 +71,8 @@ class FPNHybridFusion(nn.Module):
         self.dtype = dtype
         self.resensnet = ModifiedUnet3D2D(spec, n_classes, interpolate)
 
-    def forward(self, batch, kernels: bool = True):
+    def forward(self, batch, kernels: bool = True,
+                block_fusion: Optional[str] = None):
         oct = volume_to_device(batch["image"].to(self.dtype))
         enface = enface_to_device(batch[self.fusion_modality].to(self.dtype))
         ext3d, ext2d = bucket_extents(batch)
@@ -80,7 +83,7 @@ class FPNHybridFusion(nn.Module):
             ext3d = ext3d or tuple(oct.shape[1:4])
             ext2d = ext2d or tuple(enface.shape[1:3])
         seg = seg_from_device(self.resensnet(oct, enface, kernels, ext3d,
-                                             ext2d))
+                                             ext2d, block_fusion))
         return {"prediction": torch.sigmoid(seg)}
 
 

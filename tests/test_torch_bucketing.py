@@ -54,7 +54,7 @@ from multimodal_fusion_fpn_torch.ops import dynamic_extent as tdyn
 from multimodal_fusion_fpn_torch.ops import fused_conv as tfc
 from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
 
-from test_torch_model import random_trees
+from test_torch_model import compile_ref, random_trees
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # --- the extent ops ---------------------------------------------------------
@@ -112,13 +112,6 @@ def test_mask_valid_and_masked_mean_match_jax():
 
 # --- K7's plain version against the JAX extents conv ------------------------
 
-@pytest.fixture
-def interpret():
-    jfc.set_interpret_mode(True)
-    yield
-    jfc.set_interpret_mode(False)
-
-
 # kshape, z stride; the true extents (yt, xt, zt) inside (Y, X, Z) =
 # (4, 6, 32), with garbage beyond them
 DYN_CASES = [((1, 3, 3), 1), ((3, 1, 1), 1), ((1, 1, 3), 1), ((1, 1, 1), 1),
@@ -126,31 +119,63 @@ DYN_CASES = [((1, 3, 3), 1), ((3, 1, 1), 1), ((1, 1, 3), 1), ((1, 1, 1), 1),
 EXTENTS = (3, 5, 21)
 
 
-@pytest.mark.parametrize("impl", ["ref", "pallas"])
-@pytest.mark.parametrize("case", DYN_CASES,
-                         ids=lambda c: "k" + "".join(map(str, c[0]))
-                         + f"s{c[1]}")
-def test_fused_conv_dyn_plain_matches_jax(case, impl, request):
-    if impl == "pallas":
-        request.getfixturevalue("interpret")
-    kshape, sz = case
-    B, Y, X, Z, ci, co, bs = 1, 4, 6, 32, 8, 16, 8
+def _dyn_case(kshape, sz):
+    B, Y, X, Z, ci, co = 1, 4, 6, 32, 8, 16
     rng = np.random.default_rng(sum(kshape) + sz)
     x = rng.normal(size=(B, Y, X, Z, ci)).astype(np.float32)
     s = rng.normal(size=ci).astype(np.float32)
     b = rng.normal(size=ci).astype(np.float32)
     w = (rng.normal(size=kshape + (ci, co)) * 0.3).astype(np.float32)
-    nb = Z // bs
-    dyn = tuple(jnp.int32(e) for e in EXTENTS)
-    args = ([jfc.pack(jnp.asarray(x), bs)], [jnp.asarray(np.tile(s, bs))],
-            [jnp.asarray(np.tile(b, bs))], jnp.asarray(w), X, nb, bs)
-    if sz == 1:
-        y = jfc.fused_conv_dyn(*args, dyn, relu=True, impl=impl)
-        ref = np.asarray(jfc.unpack(y, X, nb, bs))
-    else:
+    return x, s, b, w
+
+
+def _jax_dyn(kshape, sz, impl, bs=8):
+    """f(x, s, b, w): the JAX extents conv at the module's extents."""
+    def f(x, s, b, w):
+        X, Z = x.shape[2], x.shape[3]
+        nb = Z // bs
+        dyn = tuple(jnp.int32(e) for e in EXTENTS)
+        args = ([jfc.pack(x, bs)], [jnp.tile(s, bs)], [jnp.tile(b, bs)], w,
+                X, nb, bs)
+        if sz == 1:
+            return jfc.unpack(jfc.fused_conv_dyn(*args, dyn, relu=True,
+                                                 impl=impl), X, nb, bs)
         y = jfc.fused_conv_strided_dyn(*args, valid_in=bs, dyn_extents=dyn,
                                        relu=True, impl=impl)
-        ref = np.asarray(jfc.unpack_slots(y, X, nb, bs, bs // 2))
+        return jfc.unpack_slots(y, X, nb, bs, bs // 2)
+    return f
+
+
+@pytest.fixture(scope="module")
+def jax_dyn_convs():
+    """The JAX extents conv for every case below, keyed (kshape, z stride,
+    impl): traced one after another (the Pallas body in interpret mode),
+    compiled side by side in threads."""
+    pending = {}
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for kshape, sz in DYN_CASES:
+            args = [jnp.asarray(a) for a in _dyn_case(kshape, sz)]
+            for impl in ("ref", "pallas"):
+                jfc.set_interpret_mode(impl == "pallas")
+                try:
+                    lowered = jax.jit(_jax_dyn(kshape, sz, impl)).lower(
+                        *args)
+                finally:
+                    jfc.set_interpret_mode(False)
+                pending[(kshape, sz, impl)] = (
+                    pool.submit(compile_ref, lowered), args)
+        return {k: np.asarray(c.result()(*args))
+                for k, (c, args) in pending.items()}
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("case", DYN_CASES,
+                         ids=lambda c: "k" + "".join(map(str, c[0]))
+                         + f"s{c[1]}")
+def test_fused_conv_dyn_plain_matches_jax(case, impl, jax_dyn_convs):
+    kshape, sz = case
+    x, s, b, w = _dyn_case(kshape, sz)
+    ref = jax_dyn_convs[(kshape, sz, impl)]
     t = lambda a: torch.from_numpy(a)
     got = tfc.fused_conv_dyn_plain(t(x), t(s), t(b), t(w), True, sz, EXTENTS)
     assert got.shape == ref.shape
@@ -224,13 +249,14 @@ def bucketed_case(tiny_spec):
                 lowered = jax.jit(lambda p, s, b, jm=jm: jm.apply(
                     {"params": p, "batch_stats": s}, b,
                     train=False)).lower(params, stats, jb)
-                compiled[crop] = pool.submit(lowered.compile)
+                compiled[crop] = pool.submit(compile_ref, lowered)
         finally:
             jblocks.set_fused_stage_mode(prev)
         ref = {crop: np.asarray(c.result()(params, stats, jb)["prediction"])
                for crop, c in compiled.items()}
     return dict(batch=batch, padded=padded, spec=ArchSpec(tiny_spec.channels),
-                sd=state_dict_from_jax(params, stats), ref=ref)
+                sd=state_dict_from_jax(params, stats), ref=ref,
+                template=template)
 
 
 def _port(case, crop, batch, kernels=True):
@@ -402,24 +428,21 @@ def test_metrics_row_matches_jax():
         assert metric.get() == ref.get(), name
 
 
-def test_evaluate_bucketed_rows_match_unbucketed(tiny_spec):
+def test_evaluate_bucketed_rows_match_unbucketed(bucketed_case):
     """``evaluate`` with bucket 64 and ``eval_batch`` 2 (two true shapes,
     each padded, grouped per true shape) against bucket 0: the same rows
     in the same order, the device HD fused into the step."""
-    model = build_model(_cfg("relative_2d_max"),
-                        spec=ArchSpec(tiny_spec.channels), device="cpu")
-    case = jbuild(_cfg("relative_2d_max"), spec=tiny_spec, remat=False)
+    model = build_model(_cfg("relative_2d_max"), spec=bucketed_case["spec"],
+                        device="cpu")
     rng = np.random.default_rng(11)
     # (Y, Z, X, en-face H) -> padded (16, 80, 32, 96), and (16, 64, 32, 80)
     # with the en-face map left whole
     shapes = [(8, 72, 32, 88), (8, 72, 32, 88), (12, 64, 32, 80),
               (8, 72, 32, 88)]
     batches = [_image(rng, f"img{i}", *s) for i, s in enumerate(shapes)]
-    template = jax.eval_shape(lambda: case.init(
-        {"params": jax.random.PRNGKey(0)},
-        {k: jnp.asarray(batches[0][k]) for k in ("image", "slo")},
-        train=False))
-    sd = state_dict_from_jax(*random_trees(template, seed=12))
+    # the parameter tree does not depend on the input's shape
+    sd = state_dict_from_jax(*random_trees(bucketed_case["template"],
+                                           seed=12))
     step = make_ensemble_eval_step(model, [sd], device="cpu", with_hd=True)
     plain, _ = evaluate(step, batches, _metrics(), shape_bucket=0)
     bucketed, scores = evaluate(step, batches, _metrics(), shape_bucket=64,

@@ -335,3 +335,139 @@ def test_bucketed_model_on_the_card_matches_unpadded(gen):
     assert launches["fused_conv"] == launches["fused_conv_ky3"] == 0
     assert got.shape == (1, 1, 16, 1, 64)
     _assert_close(got[:, :, :12, :, :48], ref, torch.float32)
+
+
+# --- eval block fusion: the chain and the pair (K8) --------------------------
+
+# (x shape, convs, co, final, true extents or None); Y no multiple of the
+# kernel's row chunk, X and Z no multiples of its tile, ci 8 to 64; the
+# input is random everywhere, so with extents the padding holds garbage
+CHAIN_CASES = [((2, 5, 13, 45, 16), 3, 16, "res_id", None),
+               ((1, 7, 11, 70, 32), 3, 32, "res_id", (5, 9, 61)),
+               ((2, 4, 9, 37, 16), 2, 32, "res_conv", None),
+               ((1, 6, 6, 33, 32), 2, 64, "res_conv", (5, 4, 30)),
+               ((1, 5, 5, 40, 64), 3, 64, "relu", None),
+               ((2, 9, 3, 50, 64), 3, 64, "res_id", (7, 2, 44)),
+               ((1, 3, 7, 35, 8), 2, 16, "affine", (2, 6, 31)),
+               ((1, 6, 10, 37, 8), 3, 16, "res_conv", (6, 7, 36))]
+# (x shape, co, entry affine + relu0, extents)
+PAIR_CASES = [((2, 5, 13, 45, 16), 16, False, None),
+              ((1, 6, 10, 37, 32), 32, True, (4, 7, 30)),
+              ((1, 4, 5, 33, 8), 16, True, None),
+              ((1, 3, 9, 66, 64), 64, False, (3, 8, 60))]
+
+
+def _chain_args(gen, dtype, shape, n_conv, co, final):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    ci = shape[-1]
+    affine = lambda: (1 + 0.2 * rnd(co), 0.2 * rnd(co))
+    taps = [(1, 3, 3), (1, 3, 3), (3, 1, 1)][:n_conv]
+    convs, c = [], ci
+    for k in taps:
+        convs.append((rnd(*k, c, co) / (9 * c) ** 0.5, *affine()))
+        c = co
+    s_in = b_in = None
+    if final == "affine":
+        s_in, b_in = 1 + 0.2 * rnd(ci), 0.2 * rnd(ci)
+    ds = (rnd(1, 1, 1, ci, co) / ci ** 0.5, *affine()) \
+        if final == "res_conv" else None
+    return rnd(*shape), s_in, b_in, final == "affine", convs, final, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,n_conv,co,final,ext", CHAIN_CASES)
+def test_fused_chain_kernel_matches_plain(gen, shape, n_conv, co, final,
+                                          ext, dtype):
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    args = _chain_args(gen, dtype, shape, n_conv, co, final)
+    name = "fused_chain_dyn" if ext else "fused_chain"
+    before = dict(tfb.launches)
+    y = tfb.fused_chain(*args, dyn_extents=ext)
+    torch.cuda.synchronize()
+    assert tfb.launches[name] == before[name] + 1
+    assert sum(tfb.launches.values()) == sum(before.values()) + 1
+    ref = tfb.fused_chain_plain(*args, dyn_extents=ext)
+    assert y.shape == ref.shape == shape[:4] + (co,) and y.dtype == dtype
+    _assert_close(y, ref, dtype)
+    assert torch.equal(y, tfb.fused_chain(*args, dyn_extents=ext))
+    if ext is not None:
+        assert not y[:, ext[0]:].any() and not y[:, :, ext[1]:].any()
+        assert not y[:, :, :, ext[2]:].any()
+        # the garbage beyond the extents reaches the unmasked chain
+        assert not torch.equal(tfb.fused_chain_plain(*args), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,co,entry,ext", PAIR_CASES)
+def test_fused_pair_kernel_matches_plain(gen, shape, co, entry, ext, dtype):
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    ci = shape[-1]
+    s0, b0 = (1 + 0.2 * rnd(ci), 0.2 * rnd(ci)) if entry else (None, None)
+    args = (rnd(*shape), s0, b0, rnd(1, 3, 3, ci, co) / (9 * ci) ** 0.5,
+            1 + 0.2 * rnd(co), 0.2 * rnd(co),
+            rnd(1, 3, 3, co, co) / (9 * co) ** 0.5, entry)
+    name = "fused_pair_dyn" if ext else "fused_pair"
+    before = tfb.launches[name]
+    y = tfb.fused_pair(*args, dyn_extents=ext)
+    torch.cuda.synchronize()
+    assert tfb.launches[name] == before + 1
+    ref = tfb.fused_pair_plain(*args, dyn_extents=ext)
+    assert y.shape == ref.shape == shape[:4] + (co,) and y.dtype == dtype
+    _assert_close(y, ref, dtype)
+    assert torch.equal(y, tfb.fused_pair(*args, dyn_extents=ext))
+
+
+@pytest.mark.cuda
+def test_fused_block_wrappers_refuse_what_they_do_not_take(gen):
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    x, s_in, b_in, relu0, convs, final, ds = _chain_args(
+        gen, torch.float32, (1, 4, 5, 33, 16), 3, 16, "res_id")
+    w0 = convs[0][0].clone().requires_grad_()
+    with pytest.raises(ValueError, match="requires grad"):
+        tfb.fused_chain(x, None, None, False, [(w0,) + convs[0][1:]]
+                        + convs[1:], "res_id")
+    with pytest.raises(ValueError, match="requires grad"):
+        tfb.fused_pair(x, None, None, w0, *convs[0][1:], convs[1][0], False)
+    with pytest.raises(ValueError, match="no kernel for"):
+        tfb.fused_chain(x, None, None, False, convs[::-1], "res_id")
+    x12 = torch.randn(1, 4, 5, 33, 12, device="cuda")
+    w12 = [(torch.randn(1, 3, 3, 12, 16, device="cuda"),) + convs[0][1:]]
+    with pytest.raises(ValueError, match="ci % 8"):
+        tfb.fused_chain(x12, None, None, False, w12 + convs[1:2], "relu")
+    with pytest.raises(ValueError, match="res_id needs"):
+        tfb.fused_chain(torch.randn(1, 4, 5, 33, 8, device="cuda"), None,
+                        None, False, [(torch.randn(1, 3, 3, 8, 16,
+                                                   device="cuda"),)
+                                      + convs[0][1:]] + convs[1:], "res_id")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chain", "pair"])
+def test_block_fusion_model_on_the_card_matches_per_conv(gen, mode):
+    """FPNHybridFusion at the ini widths, fp32, small input: the fused
+    blocks against the per-conv kernel path, with 5 fused launches per
+    forward (3D stage 1's second block, both blocks of stages 2 and 3)."""
+    from types import SimpleNamespace
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
+                          fusion_modality="slo", number_of_outputs=1)
+    model = build_model(cfg)
+    batch = {"image": torch.randn(1, 1, 12, 72, 48, generator=gen,
+                                  device="cuda"),
+             "slo": torch.randn(1, 1, 88, 1, 48, generator=gen,
+                                device="cuda")}
+    with torch.inference_mode():
+        ref = model(batch)["prediction"]
+        ops.reset_launches()
+        got = model(batch, block_fusion=mode)["prediction"]
+        torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    assert launches[f"fused_{mode}"] == 5
+    assert (launches["fused_conv"], launches["fused_conv_ky3"]) == (
+        (23, 3) if mode == "chain" else (25, 6))
+    err = (got.double() - ref.double()).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err

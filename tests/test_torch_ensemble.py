@@ -6,6 +6,8 @@ through the port's step on the converted state dicts; the mean predictions
 agree at rtol = atol = 1e-4.
 """
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,7 @@ from multimodal_fusion_fpn_torch.eval.ensemble import make_ensemble_eval_step
 from multimodal_fusion_fpn_torch.models.zoo import build_model
 from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
 
-from test_torch_model import _batch, random_trees
+from test_torch_model import _batch, compile_ref, random_trees
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_MEMBERS = 3
@@ -29,6 +31,9 @@ N_MEMBERS = 3
 
 @pytest.fixture(scope="module")
 def ensemble_case():
+    """The config, batch, the members' state dicts and the JAX ensemble
+    prediction, a future: the step is traced here and compiled in a thread
+    while the tests that do not read it run."""
     cfg = make_config(model="FPNHybridFusion", crop="relative_2d_max",
                       fusion_modality="slo")
     batch = _batch(4)
@@ -38,20 +43,14 @@ def ensemble_case():
         {"params": jax.random.PRNGKey(0)}, jb, train=False))
     members = [random_trees(template, seed=20 + i) for i in range(N_MEMBERS)]
     stack = lambda trees: jax.tree.map(lambda *a: jnp.stack(a), *trees)
-    out = jax_ensemble_step(jmodel)(stack([p for p, _ in members]),
-                                    stack([s for _, s in members]), jb)
-    ref = np.asarray(out["prediction"])
+    args = (stack([p for p, _ in members]), stack([s for _, s in members]),
+            jb)
+    lowered = jax_ensemble_step(jmodel).lower(*args)
     sds = [state_dict_from_jax(p, s) for p, s in members]
-    return cfg, batch, sds, ref
-
-
-def test_ensemble_matches_jax(ensemble_case):
-    cfg, batch, sds, ref = ensemble_case
-    step = make_ensemble_eval_step(build_model(cfg, device="cpu"), sds,
-                                   device="cpu")
-    got = step(batch)["prediction"]
-    assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ref = pool.submit(
+            lambda: np.asarray(compile_ref(lowered)(*args)["prediction"]))
+        yield cfg, batch, sds, ref
 
 
 def test_ensemble_is_the_mean_of_members(ensemble_case):
@@ -69,22 +68,33 @@ def test_ensemble_is_the_mean_of_members(ensemble_case):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_ensemble_bf16_returns_compute_dtype(ensemble_case):
-    cfg, batch, sds, ref = ensemble_case
-    step = make_ensemble_eval_step(
-        build_model(cfg, dtype=torch.bfloat16, device="cpu"), sds,
-        device="cpu")
-    got = step(batch)["prediction"]
-    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
-    a, b = got.float().numpy().ravel() - 0.5, ref.ravel() - 0.5
-    cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
-    assert cos >= 0.999 and abs(np.linalg.norm(a) / np.linalg.norm(b)
-                                - 1) <= 0.01
-
-
 def test_ensemble_step_defaults_to_cuda(ensemble_case):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     cfg, _, sds, _ = ensemble_case
     with pytest.raises((AssertionError, RuntimeError)):
         make_ensemble_eval_step(build_model(cfg, device="cpu"), sds)
+
+
+def test_ensemble_matches_jax(ensemble_case):
+    cfg, batch, sds, ref = ensemble_case
+    step = make_ensemble_eval_step(build_model(cfg, device="cpu"), sds,
+                                   device="cpu")
+    got = step(batch)["prediction"]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref.result(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_ensemble_bf16_returns_compute_dtype(ensemble_case):
+    cfg, batch, sds, ref = ensemble_case
+    step = make_ensemble_eval_step(
+        build_model(cfg, dtype=torch.bfloat16, device="cpu"), sds,
+        device="cpu")
+    got = step(batch)["prediction"]
+    ref = ref.result()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    a, b = got.float().numpy().ravel() - 0.5, ref.ravel() - 0.5
+    cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+    assert cos >= 0.999 and abs(np.linalg.norm(a) / np.linalg.norm(b)
+                                - 1) <= 0.01

@@ -8,6 +8,8 @@ atol = 1e-4 (``tests/test_full_model_parity.py``); bf16 is compared by
 cosine and norm ratio against the fp32 JAX result.
 """
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,22 @@ from multimodal_fusion_fpn_torch.weights import (init_state_dict,
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+# The JAX references of the port's CPU test files compile at LLVM
+# optimisation level 0 (``compile_ref``).  A reference is traced once and
+# run once on a small input, so its cost is XLA's compile, and the CPU
+# backend spends most of that in LLVM's optimisation passes on several
+# threads, which under pytest-xdist take the cores from the other workers:
+# level 0 halves the CPU time of a full-width FPNHybridFusion compile.  The
+# forward references compiled so agree with the default level's to a few
+# float32 ulps, far inside the tolerances; the float64 train step of
+# ``tests/test_torch_train.py`` returned NaN losses there, so that file
+# keeps the default level.
+COMPILE_OPTIONS = {"xla_backend_optimization_level": 0}
+
+
+def compile_ref(lowered):
+    """``lowered.compile()`` at LLVM optimisation level 0 (see above)."""
+    return lowered.compile(COMPILE_OPTIONS)
 
 
 def random_trees(template, seed):
@@ -58,13 +76,6 @@ def random_trees(template, seed):
     return params, stats
 
 
-def jax_apply(module, params, stats, *args):
-    out = jax.jit(lambda p, s, *a: module.apply(
-        {"params": p, "batch_stats": s}, *a, train=False))(
-            params, stats, *args)
-    return jax.tree.map(np.asarray, out)
-
-
 @pytest.fixture(scope="module")
 def fused_on():
     """The JAX encoder stages on their fused lowering ('on': the fused
@@ -85,18 +96,50 @@ def _sub_state_dict(tree_name, params, stats):
 
 
 # (ndim, ci, co): narrow stage-1 input, a downsample stage, identity residual
-@pytest.mark.parametrize("ndim,ci,co", [(3, 1, 16), (3, 16, 32), (3, 16, 16),
-                                       (2, 1, 16), (2, 16, 32)])
-def test_encoder_stage_matches_jax(fused_on, ndim, ci, co):
+STAGE_CASES = [(3, 1, 16), (3, 16, 32), (3, 16, 16), (2, 1, 16), (2, 16, 32)]
+ZDIM_CASES = [1, 2, 3, 4]
+
+
+def _stage_case(ndim, ci, co):
     rng = np.random.default_rng(ci + co + ndim)
     shape = (2, 3, 5, 16, ci) if ndim == 3 else (2, 6, 16, ci)
     x = rng.normal(size=shape).astype(np.float32)
-    jm = jblocks.EncoderStage(co, downsample=ci != co, ndim=ndim)
-    template = jax.eval_shape(
-        lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    params, stats = random_trees(template, seed=ndim * 100 + co)
-    ref = jax_apply(jm, params, stats, jnp.asarray(x))
+    return x, jblocks.EncoderStage(co, downsample=ci != co, ndim=ndim)
 
+
+def _zdim_case(n):
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(1, 2, 3, 64, 16)).astype(np.float32)
+    return x, jblocks.ZDimReduction(16, num_reductions=n, final_kernel=4)
+
+
+@pytest.fixture(scope="module")
+def block_refs(fused_on):
+    """(params, stats, JAX output) of every stage and projection-head case
+    below: traced one after another, compiled side by side in threads."""
+    cases = ([(("stage",) + c, _stage_case(*c), c[0] * 100 + c[2])
+              for c in STAGE_CASES]
+             + [(("zdim", n), _zdim_case(n), 10 + n) for n in ZDIM_CASES])
+    pending = {}
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for key, (x, jm), seed in cases:
+            template = jax.eval_shape(
+                lambda jm=jm, x=x: jm.init(jax.random.PRNGKey(0),
+                                           jnp.asarray(x)))
+            params, stats = random_trees(template, seed=seed)
+            lowered = jax.jit(lambda p, s, a, jm=jm: jm.apply(
+                {"params": p, "batch_stats": s}, a, train=False)).lower(
+                    params, stats, jnp.asarray(x))
+            pending[key] = (pool.submit(compile_ref, lowered), params,
+                            stats, x)
+        return {k: (p, s, np.asarray(c.result()(p, s, jnp.asarray(x))))
+                for k, (c, p, s, x) in pending.items()}
+
+
+@pytest.mark.parametrize("ndim,ci,co", STAGE_CASES)
+def test_encoder_stage_matches_jax(block_refs, ndim, ci, co):
+    x, _ = _stage_case(ndim, ci, co)
+    params, stats, ref = block_refs[("stage", ndim, ci, co)]
     tm = tblocks.EncoderStage(ci, co, ndim).eval()
     tm.load_state_dict(_sub_state_dict("conv1", params, stats), strict=True)
     with torch.no_grad():
@@ -104,16 +147,10 @@ def test_encoder_stage_matches_jax(fused_on, ndim, ci, co):
     np.testing.assert_allclose(got, ref, **TOL)
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4])
-def test_zdim_reduction_matches_jax(fused_on, n):
-    rng = np.random.default_rng(n)
-    x = rng.normal(size=(1, 2, 3, 64, 16)).astype(np.float32)
-    jm = jblocks.ZDimReduction(16, num_reductions=n, final_kernel=4)
-    template = jax.eval_shape(
-        lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    params, stats = random_trees(template, seed=10 + n)
-    ref = jax_apply(jm, params, stats, jnp.asarray(x))
-
+@pytest.mark.parametrize("n", ZDIM_CASES)
+def test_zdim_reduction_matches_jax(block_refs, n):
+    x, _ = _zdim_case(n)
+    params, stats, ref = block_refs[("zdim", n)]
     tm = tblocks.ZDimReduction(16, n).eval()
     tm.load_state_dict(_sub_state_dict("zdimRed1", params, stats),
                        strict=True)
@@ -149,22 +186,30 @@ def hybrid_weights():
     return batch, template, params, stats
 
 
-_JAX_OUT = {}
-
-
-def jax_hybrid(hybrid_weights, crop, mode):
-    """JAX FPNHybridFusion prediction in fused mode ``mode``, cached."""
-    if (crop, mode) not in _JAX_OUT:
-        batch, _, params, stats = hybrid_weights
-        prev = jblocks._FUSED_MODE
-        jblocks.set_fused_stage_mode(mode)
+@pytest.fixture(scope="module")
+def jax_hybrid(hybrid_weights):
+    """JAX FPNHybridFusion predictions per (alignment, fused mode), for
+    both alignments in fused modes 'on' and 'auto': traced one after
+    another (the fused mode is a global of the JAX package), compiled side
+    by side in threads."""
+    batch, _, params, stats = hybrid_weights
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    compiled = {}
+    prev = jblocks._FUSED_MODE
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         try:
-            out = jax_apply(jbuild(_cfg(crop), remat=False), params, stats,
-                            {k: jnp.asarray(v) for k, v in batch.items()})
+            for crop in ("relative_2d_max", "relative_2d"):
+                for mode in ("on", "auto"):
+                    jblocks.set_fused_stage_mode(mode)
+                    jm = jbuild(_cfg(crop), remat=False)
+                    lowered = jax.jit(lambda p, s, b, jm=jm: jm.apply(
+                        {"params": p, "batch_stats": s}, b,
+                        train=False)["prediction"]).lower(params, stats, jb)
+                    compiled[(crop, mode)] = pool.submit(compile_ref, lowered)
         finally:
             jblocks.set_fused_stage_mode(prev)
-        _JAX_OUT[(crop, mode)] = out["prediction"]
-    return _JAX_OUT[(crop, mode)]
+        return {k: np.asarray(c.result()(params, stats, jb))
+                for k, c in compiled.items()}
 
 
 def port_hybrid(hybrid_weights, crop, dtype=torch.float32):
@@ -178,20 +223,20 @@ def port_hybrid(hybrid_weights, crop, dtype=torch.float32):
 
 @pytest.mark.parametrize("mode", ["on", "auto"])
 @pytest.mark.parametrize("crop", ["relative_2d_max", "relative_2d"])
-def test_hybrid_fusion_matches_jax(hybrid_weights, crop, mode):
+def test_hybrid_fusion_matches_jax(hybrid_weights, jax_hybrid, crop, mode):
     """Both alignments ('2d_max', '2d'); the JAX package in fused mode
     'on' and in its default mode (per-op convs off-TPU)."""
-    ref = jax_hybrid(hybrid_weights, crop, mode)
+    ref = jax_hybrid[(crop, mode)]
     got = port_hybrid(hybrid_weights, crop).numpy()
     assert got.shape == ref.shape == (1, 1, 8, 1, 32)
     np.testing.assert_allclose(got, ref, **TOL)
 
 
-def test_hybrid_fusion_bf16_close_to_jax_fp32(hybrid_weights):
+def test_hybrid_fusion_bf16_close_to_jax_fp32(hybrid_weights, jax_hybrid):
     """bf16 against the fp32 JAX result, on the prediction centred at 0.5
     (the sigmoid's odd part: a plain cosine of values near 0.5 would pass
     for any output)."""
-    ref = jax_hybrid(hybrid_weights, "relative_2d_max", "on") - 0.5
+    ref = jax_hybrid[("relative_2d_max", "on")] - 0.5
     got = port_hybrid(hybrid_weights, "relative_2d_max", torch.bfloat16)
     assert got.dtype == torch.bfloat16
     a, b = got.float().numpy().ravel() - 0.5, ref.ravel()

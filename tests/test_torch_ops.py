@@ -9,6 +9,7 @@ kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
 """
 
 import ast
+import concurrent.futures
 import os
 
 import jax
@@ -27,12 +28,14 @@ from multimodal_fusion_fpn_tpu.ops.pallas import pool as jpool
 
 from multimodal_fusion_fpn_torch import ops
 from multimodal_fusion_fpn_torch.ops import _build
+from multimodal_fusion_fpn_torch.ops import fused_block as tfb
 from multimodal_fusion_fpn_torch.ops import fused_conv as tfc
 from multimodal_fusion_fpn_torch.ops import pool as tpool
 from multimodal_fusion_fpn_torch.ops.interpolate import linear_resize
 from multimodal_fusion_fpn_torch.ops.pooling import adaptive_max_pool
 from multimodal_fusion_fpn_torch.ops.upsample import upsample_nearest
 
+from test_torch_model import compile_ref
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -58,28 +61,70 @@ def _jax_fused(x, s, b, w, relu, bs, impl, dtype=jnp.float32):
     B, Y, X, Z, ci = x.shape
     nb = Z // bs
     tile = (lambda v: None if v is None
-            else jnp.asarray(np.tile(v, bs), dtype))
+            else jnp.tile(jnp.asarray(v, dtype), bs))
     y = jfc.fused_conv([jfc.pack(jnp.asarray(x, dtype), bs)], [tile(s)],
                        [tile(b)], jnp.asarray(w, dtype), X, nb, bs,
                        relu=relu, preferred_element_type=dtype, impl=impl)
-    return np.asarray(jfc.unpack(y, X, nb, bs), np.float32)
+    return jfc.unpack(y, X, nb, bs)
 
 
 def _t(a, dtype=torch.float32):
     return None if a is None else torch.from_numpy(a).to(dtype)
 
 
-@pytest.fixture
-def interpret():
-    jfc.set_interpret_mode(True)
-    yield
-    jfc.set_interpret_mode(False)
-
-
 # (B, Y, X, Z, kshape): 3D (1,3,3), (3,1,1), 1x1x1, and a 2D (1,3) conv
 # as (1,1,3) on the singleton-X view
 CONV_CASES = [(1, 4, 6, 16, (1, 3, 3)), (1, 4, 6, 16, (3, 1, 1)),
               (2, 3, 5, 16, (1, 1, 1)), (1, 6, 1, 24, (1, 1, 3))]
+# (affine, relu) of the stride-2 cascade cases
+CASCADE_MODES = [(True, True), (False, False), (True, False)]
+
+
+def _fwd_case(case, relu, affine):
+    B, Y, X, Z, kshape = case
+    return _conv_inputs(B, Y, X, Z, 8, 16, kshape, affine,
+                        seed=sum(kshape) + 2 * relu + affine)
+
+
+def _cascade_case(affine, relu):
+    return _conv_inputs(1, 3, 4, 32, 8, 16, (1, 1, 3), affine,
+                        seed=11 + affine + 2 * relu)
+
+
+def _jax_cascade(x, s, b, w, relu, impl, bs=8):
+    X, Z = x.shape[2], x.shape[3]
+    nb = Z // bs
+    tile = lambda v: None if v is None else jnp.tile(v, bs)
+    y = jfc.fused_conv_strided([jfc.pack(x, bs)], [tile(s)], [tile(b)], w,
+                               X, nb, bs, valid_in=bs, relu=relu, impl=impl)
+    return jfc.unpack_slots(y, X, nb, bs, bs // 2)
+
+
+@pytest.fixture(scope="module")
+def jax_forwards():
+    """The JAX fused conv's output for every case of the two forward tests
+    below, keyed ('conv', case, relu, affine, impl) or ('cascade', affine,
+    relu, impl): traced one after another (the Pallas cases in interpret
+    mode), compiled side by side in threads."""
+    jobs = [(("conv", c, r, a, i), _fwd_case(c, r, a),
+             lambda x, s, b, w, r=r, i=i: _jax_fused(x, s, b, w, r, 8, i))
+            for c in CONV_CASES for r in (True, False)
+            for a in (True, False) for i in ("ref", "pallas")]
+    jobs += [(("cascade", a, r, i), _cascade_case(a, r),
+              lambda x, s, b, w, r=r, i=i: _jax_cascade(x, s, b, w, r, i))
+             for a, r in CASCADE_MODES for i in ("ref", "pallas")]
+    pending = {}
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for key, inputs, fn in jobs:
+            args = [None if a is None else jnp.asarray(a) for a in inputs]
+            jfc.set_interpret_mode(key[-1] == "pallas")
+            try:
+                lowered = jax.jit(fn).lower(*args)
+            finally:
+                jfc.set_interpret_mode(False)
+            pending[key] = (pool.submit(compile_ref, lowered), args)
+        return {k: np.asarray(c.result()(*args), np.float32)
+                for k, (c, args) in pending.items()}
 
 
 @pytest.mark.parametrize("impl", ["ref", "pallas"])
@@ -87,13 +132,9 @@ CONV_CASES = [(1, 4, 6, 16, (1, 3, 3)), (1, 4, 6, 16, (3, 1, 1)),
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("case", CONV_CASES,
                          ids=lambda c: "k" + "".join(map(str, c[4])))
-def test_fused_conv_matches_jax(case, relu, affine, impl, request):
-    if impl == "pallas":
-        request.getfixturevalue("interpret")
-    B, Y, X, Z, kshape = case
-    x, s, b, w = _conv_inputs(B, Y, X, Z, 8, 16, kshape, affine,
-                              seed=sum(kshape) + 2 * relu + affine)
-    ref = _jax_fused(x, s, b, w, relu, bs=8, impl=impl)
+def test_fused_conv_matches_jax(case, relu, affine, impl, jax_forwards):
+    x, s, b, w = _fwd_case(case, relu, affine)
+    ref = jax_forwards[("conv", case, relu, affine, impl)]
     got = tfc.fused_conv(_t(x), _t(s), _t(b), _t(w), relu).numpy()
     np.testing.assert_allclose(got, ref, **TOL)
 
@@ -121,24 +162,14 @@ def test_padding_reads_zero_not_relu_bias():
 
 
 @pytest.mark.parametrize("impl", ["ref", "pallas"])
-@pytest.mark.parametrize("affine,relu", [(True, True), (False, False),
-                                         (True, False)])
-def test_stride2_cascade_matches_jax(affine, relu, impl, request):
+@pytest.mark.parametrize("affine,relu", CASCADE_MODES)
+def test_stride2_cascade_matches_jax(affine, relu, impl, jax_forwards):
     """The stride-2 (1,1,3) cascade conv vs ``fused_conv_strided`` on a
     dense input (valid_in = bs) read back with ``unpack_slots``."""
-    if impl == "pallas":
-        request.getfixturevalue("interpret")
-    B, Y, X, Z, bs = 1, 3, 4, 32, 8
-    x, s, b, w = _conv_inputs(B, Y, X, Z, 8, 16, (1, 1, 3), affine,
-                              seed=11 + affine + 2 * relu)
-    nb = Z // bs
-    tile = lambda v: None if v is None else jnp.asarray(np.tile(v, bs))
-    y = jfc.fused_conv_strided([jfc.pack(jnp.asarray(x), bs)], [tile(s)],
-                               [tile(b)], jnp.asarray(w), X, nb, bs,
-                               valid_in=bs, relu=relu, impl=impl)
-    ref = np.asarray(jfc.unpack_slots(y, X, nb, bs, bs // 2))
+    x, s, b, w = _cascade_case(affine, relu)
+    ref = jax_forwards[("cascade", affine, relu, impl)]
     got = tfc.fused_conv(_t(x), _t(s), _t(b), _t(w), relu, stride_z=2)
-    assert got.shape == (B, Y, X, (Z + 1) // 2, 16)
+    assert got.shape == (1, 3, 4, 16, 16)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
@@ -189,24 +220,20 @@ def _jax_conv_fn(X, Z, bs, relu, stride_z, stats, impl):
     return f
 
 
-def _jax_conv_vjp(x, s, b, w, cot, X, Z, bs, relu, stride_z, stats, impl):
-    """(y, s1, s2, dx, ds, db, dw) of the JAX fused conv, numpy."""
+def _jax_conv_vjp(X, Z, bs, relu, stride_z, stats, impl, affine):
+    """f(x, w, s, b, g, gs1, gs2) -> (out, grads): the JAX fused conv's
+    output and its jax.vjp for the cotangent g (with (gs1, gs2) on the
+    stats), grads (dx, dw[, ds, db])."""
     f = _jax_conv_fn(X, Z, bs, relu, stride_z, stats, impl)
-    affine = s is not None
-    args = [jnp.asarray(x), jnp.asarray(w)]
-    if affine:
-        args += [jnp.asarray(s), jnp.asarray(b)]
-        fa = lambda x_, w_, s_, b_: f(x_, s_, b_, w_)
-    else:
-        fa = lambda x_, w_: f(x_, None, None, w_)
-    out, pull = jax.vjp(fa, *args)
-    cot = tuple(jnp.asarray(c) for c in cot) if stats else jnp.asarray(cot[0])
-    grads = [np.asarray(a) for a in pull(cot)]
-    out = [np.asarray(o) for o in (out if stats else (out,))]
-    y, s1, s2 = (out + [None, None])[:3]
-    dx, dw = grads[:2]
-    ds, db = grads[2:] if affine else (None, None)
-    return y, s1, s2, dx, ds, db, dw
+
+    def run(x, w, s, b, g, gs1, gs2):
+        if affine:
+            out, pull = jax.vjp(lambda x_, w_, s_, b_: f(x_, s_, b_, w_),
+                                x, w, s, b)
+        else:
+            out, pull = jax.vjp(lambda x_, w_: f(x_, None, None, w_), x, w)
+        return out, pull((g, gs1, gs2) if stats else g)
+    return run
 
 
 # (taps, z stride): the (1,3,3) stage conv, the 2D (1,3) / 3D (1,1,3) convs,
@@ -247,26 +274,76 @@ def _port_bwd(x, s, b, w, g, gs1, gs2, relu, stride_z, stats):
     return (y, s1, s2), plain, auto
 
 
-@pytest.mark.parametrize("impl", ["ref", "pallas"])
+_BWD_IMPLS = ("ref", "pallas")
+_BWD_MODES = ((True, True), (False, False))   # (affine, relu)
+
+
+def _bwd_seed(kshape, stride_z, affine, stats, split):
+    if split:
+        return 40 + sum(kshape) + stride_z
+    return sum(kshape) + 3 * stride_z + 5 * affine + 7 * stats
+
+
+@pytest.fixture(scope="module")
+def jax_vjps():
+    """(y, s1, s2, dx, ds, db, dw) of jax.vjp of the JAX fused conv, numpy,
+    for every case of the two backward tests below, keyed (kshape,
+    stride_z, affine, relu, stats, impl, split): traced one after another
+    (the Pallas cases in interpret mode, the split ones with
+    MMF_MERGED_BWD=0, both read while tracing), compiled side by side in
+    threads."""
+    cases = [(k, sz, a, r, st, impl, False) for k, sz in BWD_CASES
+             for a, r in _BWD_MODES for st in (False, True)
+             for impl in _BWD_IMPLS]
+    cases += [(k, sz, True, True, True, "pallas", True)
+              for k, sz in BWD_CASES]
+    pending = {}
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for case in cases:
+            kshape, stride_z, affine, relu, stats, impl, split = case
+            x, s, b, w, g, gs1, gs2 = _bwd_inputs(
+                kshape, stride_z, affine,
+                _bwd_seed(kshape, stride_z, affine, stats, split))
+            args = [jnp.asarray(a) if a is not None else None
+                    for a in (x, w, s, b, g, gs1, gs2)]
+            fn = _jax_conv_vjp(4, 16, 8, relu, stride_z, stats, impl, affine)
+            with pytest.MonkeyPatch.context() as mp:
+                if split:
+                    mp.setenv("MMF_MERGED_BWD", "0")
+                jfc.set_interpret_mode(impl == "pallas")
+                try:
+                    lowered = jax.jit(fn).lower(*args)
+                finally:
+                    jfc.set_interpret_mode(False)
+            pending[case] = (pool.submit(compile_ref, lowered), args)
+        refs = {}
+        for case, (compiled, args) in pending.items():
+            out, grads = compiled.result()(*args)
+            out = [np.asarray(o) for o in (out if case[4] else (out,))]
+            grads = [np.asarray(a) for a in grads]
+            y, s1, s2 = (out + [None, None])[:3]
+            ds, db = grads[2:] if case[2] else (None, None)
+            refs[case] = (y, s1, s2, grads[0], ds, db, grads[1])
+    return refs
+
+
+@pytest.mark.parametrize("impl", _BWD_IMPLS)
 @pytest.mark.parametrize("stats", [False, True], ids=["g", "g+stats"])
-@pytest.mark.parametrize("affine,relu", [(True, True), (False, False)],
+@pytest.mark.parametrize("affine,relu", _BWD_MODES,
                          ids=["affine_relu", "identity"])
 @pytest.mark.parametrize("kshape,stride_z", BWD_CASES,
                          ids=lambda c: "".join(map(str, c))
                          if isinstance(c, tuple) else f"s{c}")
 def test_fused_conv_bwd_matches_jax_vjp(kshape, stride_z, affine, relu,
-                                        stats, impl, request):
+                                        stats, impl, jax_vjps):
     """dx, ds, db, dw of the plain backward and of the autograd Function
     against jax.vjp of the JAX fused conv (the XLA reference, or the Pallas
     merged backward K3/K4 in interpret mode), with and without the stats
     cotangent; the stats forward against ``out_stats``."""
-    if impl == "pallas":
-        request.getfixturevalue("interpret")
-    x, s, b, w, g, gs1, gs2 = _bwd_inputs(kshape, stride_z, affine,
-                                          seed=sum(kshape) + 3 * stride_z
-                                          + 5 * affine + 7 * stats)
-    ref = _jax_conv_vjp(x, s, b, w, (g, gs1, gs2), 4, 16, 8, relu,
-                        stride_z, stats, impl)
+    x, s, b, w, g, gs1, gs2 = _bwd_inputs(
+        kshape, stride_z, affine,
+        _bwd_seed(kshape, stride_z, affine, stats, False))
+    ref = jax_vjps[(kshape, stride_z, affine, relu, stats, impl, False)]
     fwd, plain, auto = _port_bwd(x, s, b, w, g, gs1, gs2, relu, stride_z,
                                  stats)
     _assert_rel(fwd[0].numpy(), ref[0], "y")
@@ -285,17 +362,14 @@ def test_fused_conv_bwd_matches_jax_vjp(kshape, stride_z, affine, relu,
 @pytest.mark.parametrize("kshape,stride_z", BWD_CASES,
                          ids=lambda c: "".join(map(str, c))
                          if isinstance(c, tuple) else f"s{c}")
-def test_split_wgrad_matches_jax_dband_kernel(kshape, stride_z, interpret,
-                                              monkeypatch):
+def test_split_wgrad_matches_jax_dband_kernel(kshape, stride_z, jax_vjps):
     """K6: with MMF_MERGED_BWD=0 the JAX backward takes the split path,
     whose weight cotangent comes from ``_dband_pallas`` (``_dband_kernel``
     / ``_yck_dband_kernel``) in interpret mode; the port's dw (the wgrad
     function) must agree, with the stats cotangent folded in."""
-    monkeypatch.setenv("MMF_MERGED_BWD", "0")
-    x, s, b, w, g, gs1, gs2 = _bwd_inputs(kshape, stride_z, True,
-                                          seed=40 + sum(kshape) + stride_z)
-    ref = _jax_conv_vjp(x, s, b, w, (g, gs1, gs2), 4, 16, 8, True,
-                        stride_z, True, "pallas")
+    x, s, b, w, g, gs1, gs2 = _bwd_inputs(
+        kshape, stride_z, True, _bwd_seed(kshape, stride_z, True, True, True))
+    ref = jax_vjps[(kshape, stride_z, True, True, True, "pallas", True)]
     _, plain, auto = _port_bwd(x, s, b, w, g, gs1, gs2, True, stride_z,
                                True)
     for name, i in (("dx", 0), ("ds", 1), ("db", 2), ("dw", 3)):
@@ -496,14 +570,25 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
     xg = x.clone().requires_grad_()
     tfc.fused_conv(xg, s, b, w, True, with_stats=True)[1].sum().backward()
     tpool.max_pool3d_cl(xg, (1, 1, 2)).sum().backward()
+    # the whole-block wrappers (K8) too
+    convs = [(w, s, b), (w, s, b)]
+    torch.testing.assert_close(
+        tfb.fused_chain(x, None, None, False, convs, "res_id"),
+        tfb.fused_chain_plain(x, None, None, False, convs, "res_id"),
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        tfb.fused_pair(x, s, b, w, s, b, w, True, dyn_extents=(1, 2, 5)),
+        tfb.fused_pair_plain(x, s, b, w, s, b, w, True, (1, 2, 5)),
+        rtol=0, atol=0)
     launches = ops.kernel_launches()
     assert set(launches) == {
         "fused_conv", "fused_conv_ky3", "fused_conv_stats",
         "fused_conv_ky3_stats", "fused_conv_dgrad", "fused_conv_wgrad",
         "fused_conv_ky3_dgrad", "fused_conv_ky3_wgrad", "fused_conv_dyn",
-        "fused_conv_dyn_ky3", "max_pool3d_cl", "max_pool3d_cl_bwd"}
+        "fused_conv_dyn_ky3", "max_pool3d_cl", "max_pool3d_cl_bwd",
+        "fused_chain", "fused_pair", "fused_chain_dyn", "fused_pair_dyn"}
     assert not any(launches.values()), launches
-    assert not tfc.calls and not tpool.calls
+    assert not tfc.calls and not tpool.calls and not tfb.calls
 
 
 @pytest.mark.parametrize("bad,match", [
