@@ -112,12 +112,28 @@ Phases, each of which fails the run on any error:
    rate of ``evaluate`` on the same four, with the busy share and the
    largest kernels; the launch counts of the serving runs under "chain"
    and "pair" are the extents instances'.
-8. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+8. The narrow-entry conv (K10: the ci = 1 first conv and 1x1x1
+   downsample of both stage 1s, 4 launches per member forward, and per
+   train step 4 forwards and 4 weight gradients, which phases 2-7 check
+   among their launch counts).  At every K10 call shape that phases 2, 4
+   and 6 recorded (the ensemble's forwards, the train step's forwards and
+   weight gradients, the bucketed forwards with extents) and at the data
+   gradient's instance of each train shape (ci 16 -> co 1, which the
+   train step does not launch: its input is the data), the kernel against
+   its plain version: fp32 max-abs-err <= 1e-5 * max|y|, bf16 cosine >=
+   0.9999 and norm ratio within 1%; two runs bitwise equal (the weight
+   gradient's fixed-order sums); with extents, on inputs random
+   everywhere, the garbage beyond them must show in the unmasked plain
+   version.  Each shape line has the kernel's, the plain version's and the
+   library call's time (``F.conv3d`` on the masked input, or
+   ``aten.convolution_backward``'s weight or input gradient) and the bound.
+9. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
-   kernels, the bucketed serving run for K7 and the fused runs of phase 7
-   for K8; max-abs-err of its fp32 comparisons; per-step times summed
-   over the bf16 B=4 calls), the card line, and last the ``{"ok": true,
-   "device": ...}`` line.
+   kernels, the bucketed serving run for K7 and K10's extents instance and
+   the fused runs of phase 7 for K8; max-abs-err of its fp32 comparisons;
+   per-step times summed over the bf16 B=4 calls; the data gradient of
+   K10, off the path, with 0 launches and ``on_main_path`` false), the
+   card line, and last the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without CUDA or without the package.
 """
@@ -163,8 +179,10 @@ _FC = "multimodal_fusion_fpn_torch/csrc/fused_conv.cu"
 _FCB = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd.cu"
 _POOL = "multimodal_fusion_fpn_torch/csrc/pool.cu"
 _FB = "multimodal_fusion_fpn_torch/csrc/fused_block.cu"
+_BC = "multimodal_fusion_fpn_torch/csrc/banded_conv.cu"
 _TPU_FC = "multimodal_fusion_fpn_tpu/ops/pallas/fused_conv.py"
 _TPU_POOL = "multimodal_fusion_fpn_tpu/ops/pallas/pool.py"
+_TPU_BC = "multimodal_fusion_fpn_tpu/ops/pallas/banded_conv.py"
 # name -> (source, the TPU kernel it replaces, the step whose run counts)
 KERNELS = {
     "fused_conv": (_FC, f"{_TPU_FC}:375", "ensemble"),
@@ -183,8 +201,22 @@ KERNELS = {
     "fused_pair": (_FB, f"{_TPU_FC}:1294", "pair"),
     "fused_chain_dyn": (_FB, f"{_TPU_FC}:1445", "bucketed_chain"),
     "fused_pair_dyn": (_FB, f"{_TPU_FC}:1294", "bucketed_pair"),
+    "banded_conv": (_BC, f"{_TPU_BC}:66", "ensemble"),
+    "banded_conv_dyn": (_BC, f"{_TPU_BC}:66", "bucketed"),
+    "banded_conv_wgrad": (_BC, f"{_TPU_BC}:66", "train"),
+    "banded_conv_dgrad": (_BC, f"{_TPU_BC}:66", "train"),
 }
-TRAIN_KERNELS = [k for k, v in KERNELS.items() if v[2] == "train"]
+# checked at the train shapes, but not launched by the train step: the
+# data gradient of the narrow convs, whose input is the data
+OFF_PATH = ("banded_conv_dgrad",)
+TRAIN_KERNELS = [k for k, v in KERNELS.items()
+                 if v[2] == "train" and k not in OFF_PATH]
+# K10 launches per member forward (eval), and per train step (forward,
+# weight gradient, data gradient): the narrow first conv and 1x1x1
+# downsample of the 3D and the 2D stage 1 (tests/test_torch_banded.py)
+K10_PER_MEMBER = 4
+K10_PER_TRAIN_STEP = {"banded_conv": 4, "banded_conv_wgrad": 4,
+                      "banded_conv_dgrad": 0}
 # the records of each path's kernel checks carry this tag prefix
 RECORD_PREFIX = {"bucketed": "bucketed_", "chain": "k8_", "pair": "k8_",
                  "bucketed_chain": "k8_", "bucketed_pair": "k8_"}
@@ -192,9 +224,11 @@ K8_MODES = ("chain", "pair")
 # launches per member under each block fusion (the CPU routing test,
 # tests/test_torch_fused_block.py)
 K8_PER_MEMBER = {"chain": {"fused_chain": 5, "fused_conv": 23,
-                           "fused_conv_ky3": 3},
+                           "fused_conv_ky3": 3,
+                           "banded_conv": K10_PER_MEMBER},
                  "pair": {"fused_pair": 5, "fused_conv": 25,
-                          "fused_conv_ky3": 6}}
+                          "fused_conv_ky3": 6,
+                          "banded_conv": K10_PER_MEMBER}}
 
 
 def emit(obj):
@@ -510,6 +544,106 @@ def check_pool_bwd_shape(key, n_calls, gen):
                 library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
                 ok=exact and ties, ties_present=ties,
                 max_err=(dx.float() - ref.float()).abs().max().item())
+
+
+def check_banded_shape(key, n_calls, gen):
+    """Phase 8 at one K10 call: the kernel against its plain version
+    (``compare_bucketed``: fp32 1e-5 * max|y|, bf16 cosine >= 0.9999 and
+    norm ratio within 1%), two runs bitwise equal, with extents the
+    garbage beyond them showing in the unmasked plain version; the times
+    of the kernel, the plain version and the library call (``F.conv3d`` on
+    the masked input, or cuDNN's weight or data gradient of the conv)."""
+    import torch
+    import torch.nn.functional as F
+    from multimodal_fusion_fpn_torch.ops import banded_conv as bc
+    from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
+    name, xs, ws, dts, ext = key
+    dt = _dtype(dts)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = rnd(*xs).to(dt)
+    n_pos = int(np.prod(xs[:4]))
+    taps = int(np.prod(ws[:3]))
+    pad = tuple(k // 2 for k in ws[:3])
+    conv_bwd = lambda g, inp, w, mask: torch.ops.aten.convolution_backward(
+        g, inp, w, None, (1, 1, 1), pad, (1, 1, 1), False, (0, 0, 0), 1,
+        mask)
+    garbage_shows = True
+    if name == "banded_conv_wgrad":
+        g = rnd(*xs[:4], ws[4]).to(dt)
+        run = lambda: bc.banded_conv_wgrad(x, g, ws)
+        plain = lambda: bc.banded_conv_wgrad_plain(x, g, ws)
+        wl = torch.empty(ws[4], ws[3], *ws[:3], dtype=dt, device="cuda")
+        xl, gl = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        lib = lambda: conv_bwd(gl, xl, wl, (False, True, False))
+        nbytes = x.numel() + g.numel() + int(np.prod(ws))
+    elif name == "banded_conv_dgrad":
+        # x is the output cotangent g, ws the flipped kernel's shape; w is
+        # the conv's own kernel (kY, kX, kz, ci, co)
+        w = (rnd(*ws[:3], ws[4], ws[3]) / (taps * ws[4]) ** 0.5).to(dt)
+        run = lambda: bc.banded_conv_dgrad(x, w)
+        plain = lambda: bc.banded_conv_dgrad_plain(x, w)
+        inp = torch.empty(xs[0], ws[4], *xs[1:4], dtype=dt, device="cuda")
+        wl = w.permute(4, 3, 0, 1, 2).contiguous()
+        gl = x.permute(0, 4, 1, 2, 3)
+        lib = lambda: conv_bwd(gl, inp, wl, (True, False, False))
+        nbytes = x.numel() + w.numel() + n_pos * ws[4]
+    else:
+        w = (rnd(*ws) / (taps * ws[3]) ** 0.5).to(dt)
+        run = lambda: bc.banded_conv(x, w, dyn_extents=ext)
+        plain = lambda: bc.banded_conv_plain(x, w, ext)
+        t = (x if ext is None else mask_valid(
+            x, dict(zip((1, 2, 3), ext)))).permute(0, 4, 1, 2, 3)
+        wl = w.permute(4, 3, 0, 1, 2).contiguous()
+        lib = lambda: F.conv3d(t, wl, padding=pad)
+        nbytes = x.numel() + w.numel() + n_pos * ws[4]
+        if ext is not None and tuple(ext) != tuple(xs[1:4]):
+            garbage_shows = not compare_bucketed(bc.banded_conv_plain(x, w),
+                                                 plain(), dt)[0]
+    y = run()
+    ok, stats = compare_bucketed(y, plain(), dt)
+    same = torch.equal(y, run())
+    nbytes *= x.element_size()
+    flops = 2.0 * n_pos * taps * ws[3] * ws[4]
+    b_ms, b_by = bound(nbytes, flops, dts)
+    return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws),
+                extents=None if ext is None else list(ext),
+                calls_per_step=n_calls, flop=flops, bytes=nbytes,
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
+                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
+                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                ok=ok and same and garbage_shows, bitwise_repeatable=same,
+                garbage_shows=garbage_shows, **stats)
+
+
+def recorded_calls():
+    """What the last run called: each kernel module's ``calls`` by module
+    name, and the launch counts under "launches"."""
+    from multimodal_fusion_fpn_torch import ops
+    out = {m.__name__.rsplit(".", 1)[-1]: dict(m.calls)
+           for m in ops.KERNEL_MODULES}
+    out["launches"] = ops.kernel_launches()
+    return out
+
+
+def k10_checks(shapes, train_shapes, bucketed_shapes):
+    """Phase 8's calls: {(record tag, key): calls per step} from the K10
+    calls that phases 2, 4 and 6 recorded (``recorded_calls``), plus the
+    data gradient's instance at each weight-gradient shape (one call each:
+    what the step would pay if the input needed its gradient)."""
+    out = {}
+    for tag in shapes:
+        for key, n in shapes[tag]["banded_conv"].items():
+            out[(tag, key)] = MEMBERS * n
+        for key, n in bucketed_shapes[tag]["banded_conv"].items():
+            out[("bucketed_" + tag, key)] = MEMBERS * n
+        for key, n in train_shapes[tag]["banded_conv"].items():
+            out.setdefault((tag, key), n)   # the forwards: the ensemble's
+            if key[0] == "banded_conv_wgrad":
+                _, xs, ws, dts, _ = key
+                dgrad = ("banded_conv_dgrad", tuple(xs[:4]) + (ws[4],),
+                         tuple(ws[:3]) + (ws[4], ws[3]), dts, None)
+                out[(tag, dgrad)] = 1
+    return out
 
 
 def trace_step(fn):
@@ -1168,8 +1302,8 @@ def block_grads(mod, x, g, kernels):
 def _scale_invariant(mod, name):
     """A 1x1 conv weight with one input channel that feeds a train-mode
     BatchNorm: the BatchNorm makes the output invariant to it up to eps,
-    so its gradient is the rounding of a cancellation (both paths compute
-    it with cuDNN)."""
+    so its gradient is the rounding of a cancellation (K10's weight
+    gradient on the kernel path, cuDNN's on the plain path)."""
     if not name.endswith(".0.weight"):
         return False
     w = mod.get_parameter(name)
@@ -1302,8 +1436,7 @@ def main() -> int:
     from multimodal_fusion_fpn_torch.eval.ensemble import \
         make_ensemble_eval_step
     from multimodal_fusion_fpn_torch.models.zoo import build_model
-    from multimodal_fusion_fpn_torch.ops import (_build, fused_block,
-                                                 fused_conv, pool)
+    from multimodal_fusion_fpn_torch.ops import _build, fused_block
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1311,7 +1444,8 @@ def main() -> int:
     t_start = time.time()
 
     # --- 1. build ---------------------------------------------------------
-    libs = ["fused_conv", "fused_conv_bwd", "pool", "fused_block"]
+    libs = ["fused_conv", "fused_conv_bwd", "pool", "fused_block",
+            "banded_conv"]
     _build.build(libs)
     for name in libs:
         _build.load(name)
@@ -1340,12 +1474,17 @@ def main() -> int:
         with torch.inference_mode():
             model(batch)
         torch.cuda.synchronize()
-        shapes[tag] = (dict(fused_conv.calls), dict(pool.calls),
-                       ops.kernel_launches())
+        shapes[tag] = recorded_calls()
+        n_k10 = shapes[tag]["launches"]["banded_conv"]
         emit({"phase": "shapes", "config": tag,
-              "launches_per_member": shapes[tag][2]})
+              "launches_per_member": shapes[tag]["launches"]})
+        if n_k10 != K10_PER_MEMBER:
+            failures.append(f"shapes {tag}: {n_k10}"
+                            f" K10 launches per member, not "
+                            f"{K10_PER_MEMBER}")
     for tag, _, _ in configs:
-        conv_calls, pool_calls, _ = shapes[tag]
+        conv_calls, pool_calls = (shapes[tag]["fused_conv"],
+                                  shapes[tag]["pool"])
         for key, n in sorted(conv_calls.items(), key=str):
             records[(tag, key)] = check_conv_shape(key, MEMBERS * n, gen)
             emit(records[(tag, key)])
@@ -1374,7 +1513,7 @@ def main() -> int:
         ok, stats = compare(pred.float() - 0.5, ref.float() - 0.5, dt)
         if pred.shape != (B, 1, OCT_YZX[0], 1, OCT_YZX[2]):
             ok = False
-        per_member = shapes[tag][2]
+        per_member = shapes[tag]["launches"]
         counted = all(launches[k] == MEMBERS * per_member[k] > 0
                       for k, v in KERNELS.items() if v[2] == "ensemble")
         times, busy = timed_paths(
@@ -1422,10 +1561,9 @@ def main() -> int:
         ops.reset_launches()
         tr.step(batch)
         torch.cuda.synchronize()
-        train_shapes[tag] = (dict(fused_conv.calls), dict(pool.calls),
-                             ops.kernel_launches())
+        train_shapes[tag] = recorded_calls()
         emit({"phase": "train_shapes", "config": tag,
-              "launches_per_step": train_shapes[tag][2]})
+              "launches_per_step": train_shapes[tag]["launches"]})
     check = {"fused_conv_stats": check_stats_shape,
              "fused_conv_ky3_stats": check_stats_shape,
              "fused_conv_dgrad": check_bwd_shape,
@@ -1434,7 +1572,8 @@ def main() -> int:
              "fused_conv_ky3_wgrad": check_bwd_shape,
              "max_pool3d_cl_bwd": check_pool_bwd_shape}
     for tag, _, _ in configs:
-        conv_calls, pool_calls, _ = train_shapes[tag]
+        conv_calls = train_shapes[tag]["fused_conv"]
+        pool_calls = train_shapes[tag]["pool"]
         for key, n in sorted({**conv_calls, **pool_calls}.items(), key=str):
             if key[0] in check:
                 rec = check[key[0]](key, n, gen)
@@ -1501,7 +1640,8 @@ def main() -> int:
         ok = ok_f and ok_g and ok_u and ok_b and caught
         cmp.update(cmp_g, reference_dtype=str(ref_dtype[dt]))
         counted = all(launches[k] > 0 for k in TRAIN_KERNELS + [
-            "max_pool3d_cl"])
+            "max_pool3d_cl"]) and all(launches[k] == n for k, n in
+                                      K10_PER_TRAIN_STEP.items())
         emit({"phase": "train_blocks", "config": tag, "ok": ok_b,
               "blocks": blocks})
         emit({"phase": "grad_trace", "config": tag,
@@ -1528,7 +1668,8 @@ def main() -> int:
                             f"{caught}")
         if not counted:
             failures.append(f"train {tag}: a train kernel was not "
-                            f"launched: {launches}")
+                            f"launched, or K10's launches are not "
+                            f"{K10_PER_TRAIN_STEP}: {launches}")
 
     # one fp32 train step on a small input against the CPU
     small = make_batch(1, 5, (8, 64, 32), (80, 32))
@@ -1568,14 +1709,15 @@ def main() -> int:
                    if not k.startswith("__") else v
                    for k, v in padded.items()})
         torch.cuda.synchronize()
-        bucketed_shapes[tag] = (dict(fused_conv.calls), dict(pool.calls))
+        bucketed_shapes[tag] = recorded_calls()
         emit({"phase": "bucketed_shapes", "config": tag,
               "padded_image": list(padded["image"].shape),
               "padded_slo": list(padded["slo"].shape),
-              "launches_per_member": ops.kernel_launches()})
+              "launches_per_member": bucketed_shapes[tag]["launches"]})
     n_bad = len(failures)
     for tag, _, _ in configs:
-        conv_calls, pool_calls = bucketed_shapes[tag]
+        conv_calls = bucketed_shapes[tag]["fused_conv"]
+        pool_calls = bucketed_shapes[tag]["pool"]
         for key, n in sorted(conv_calls.items(), key=str):
             rec = check_dyn_shape(key, MEMBERS * n, gen)
             records[("bucketed_" + tag, key)] = rec
@@ -1589,6 +1731,11 @@ def main() -> int:
                                  for k in conv_calls):
             failures.append(f"bucketed {tag}: fused convs {sorted(conv_calls)}"
                             " are not all extents instances")
+        k10 = bucketed_shapes[tag]["banded_conv"]
+        if (sum(k10.values()) != K10_PER_MEMBER
+                or any(k[0] != "banded_conv_dyn" for k in k10)):
+            failures.append(f"bucketed {tag}: K10 calls {k10} are not "
+                            f"{K10_PER_MEMBER} extents instances")
     bad = [r for (tag, _), r in records.items()
            if tag.startswith("bucketed_") and not r["ok"]]
     if bad:
@@ -1608,8 +1755,15 @@ def main() -> int:
     emit(rec)
     if not all(main_launches["bucketed"][k] > 0
                for k, v in KERNELS.items() if v[2] == "bucketed"):
-        failures.append(f"serving: K7 was not launched: "
+        failures.append(f"serving: K7 or K10 was not launched: "
                         f"{main_launches['bucketed']}")
+    serve_steps = SERVE_IMAGES // SERVE_BATCH
+    if (main_launches["bucketed"]["banded_conv_dyn"]
+            != serve_steps * MEMBERS * K10_PER_MEMBER):
+        failures.append(f"serving: K10 launches "
+                        f"{main_launches['bucketed']['banded_conv_dyn']} != "
+                        f"{serve_steps} steps x {MEMBERS} x "
+                        f"{K10_PER_MEMBER}")
     emit({"phase": "bucketed_done", "ok": len(failures) == n_bad,
           "seconds": time.time() - t_start})
     del models
@@ -1672,7 +1826,26 @@ def main() -> int:
     del models
     torch.cuda.empty_cache()
 
-    # --- 8. summary -------------------------------------------------------
+    # --- 8. the narrow-entry conv (K10) -----------------------------------
+    n_bad = len(failures)
+    k10 = k10_checks(shapes, train_shapes, bucketed_shapes)
+    emit({"phase": "k10_shapes",
+          "calls_per_step": [[tag, list(map(str, key)), n]
+                             for (tag, key), n in sorted(k10.items(),
+                                                         key=str)]})
+    for (tag, key), n in sorted(k10.items(), key=str):
+        rec = check_banded_shape(key, n, gen)
+        records[(tag, key)] = rec
+        emit(dict(rec, config=tag, card=card))
+    bad = [r for (tag, key), r in records.items()
+           if (tag, key) in k10 and not r["ok"]]
+    if bad:
+        failures.append(f"{len(bad)} K10 kernel checks failed: "
+                        f"{sorted({r['kernel'] for r in bad})}")
+    emit({"phase": "k10_done", "ok": len(failures) == n_bad,
+          "seconds": time.time() - t_start})
+
+    # --- 9. summary -------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
         prefix = RECORD_PREFIX.get(path, "")
@@ -1704,7 +1877,11 @@ def main() -> int:
                            else per_step(main, "library_ms"))})
         if main and "per_conv_ms" in main[0]:
             summary[-1]["per_conv_ms"] = per_step(main, "per_conv_ms")
-        if launches <= 0:
+        if name in OFF_PATH:
+            summary[-1]["on_main_path"] = False
+            if launches != 0:
+                failures.append(f"{name} was launched on the {path} path")
+        elif launches <= 0:
             failures.append(f"{name} was not launched on the {path} path")
     emit({"phase": "done", "seconds": time.time() - t_start})
     if failures:

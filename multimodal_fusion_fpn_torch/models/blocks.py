@@ -38,14 +38,21 @@ a block's output is masked to its extents, so pools, projections and
 residuals read zeros there.  The JAX package passes the extents down a
 context stack; here they are an argument.
 
-Which convs run the hand-written kernel (``ops.fused_conv``) when
-``kernels`` is True mirrors where the JAX package runs its Pallas kernel:
-the encoder stages and projection cascades of at most 64 channels, except
-the convs whose input is narrow (ci < 8: the first conv and 1x1
-downsample of both stage 1s, which the JAX package computes with XLA).
-Stages 4-5, the strided 1x1 downsample of the cascades, the ``fully``
-convs, the decoder and ``final1`` run the plain version (cuDNN on the
-card), as they run XLA convolutions in the JAX package.
+Which convs run a hand-written kernel when ``kernels`` is True mirrors
+where the JAX package runs its Pallas kernels: the encoder stages and
+projection cascades of at most 64 channels take the fused conv
+(``ops.fused_conv``), except the convs whose input is narrow (ci < 8: the
+first conv and 1x1x1 downsample of both stage 1s, also the narrow entry of
+the chain), which take the banded conv (``ops.banded_conv``, K10, the
+kernel of the JAX package's per-op blocked path ``banded_conv_blocked``;
+the default fused path there computes the same conv in XLA).  K10 has no
+prologue and no stats epilogue: an affine + ReLU before it runs in plain
+torch, with the extents in the kernel; in training it runs through
+``BandedConv`` (dw, and dx where the input needs it, through its kernels)
+and the BatchNorm batch stats come from plain sums.  Stages 4-5, the
+strided 1x1 downsample of the cascades, the ``fully`` convs, the decoder
+and ``final1`` run the plain version (cuDNN on the card), as they run XLA
+convolutions in the JAX package.
 
 Eval block fusion (``block_fusion``, the JAX package's ``MMF_FUSED_PAIR``
 / ``MMF_FUSED_CHAIN``, read there from the environment and here passed as
@@ -64,6 +71,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from multimodal_fusion_fpn_torch.ops.banded_conv import banded_conv
 from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
 from multimodal_fusion_fpn_torch.ops.fused_block import (fused_chain,
                                                          fused_chain_plain,
@@ -259,14 +267,17 @@ class ConvX(nn.Module):
         (sum y, sum y*y) of its stats epilogue; otherwise sums is None.
         ``ext``: the true extents of x (module note)."""
         ci = w.shape[3]
-        if kernels and self.fused and ci >= 8 and self.padding == "same":
-            if self.training:
+        dyn = None if ext is None else _full(ext, x)
+        if kernels and self.fused and self.padding == "same":
+            if ci >= 8 and self.training:
                 y, s1, s2 = fused_conv(x, s, b, w, relu, stride_z,
                                        with_stats=True)
                 return y, (s1, s2)
-            dyn = None if ext is None else _full(ext, x)
-            return fused_conv(x, s, b, w, relu, stride_z,
-                              dyn_extents=dyn), None
+            if ci >= 8:
+                return fused_conv(x, s, b, w, relu, stride_z,
+                                  dyn_extents=dyn), None
+            if stride_z == 1:
+                return banded_conv(affine_relu(x, s, b, relu), w, dyn), None
         pad = ((0, 0, 0) if self.padding == "valid"
                else tuple(k // 2 for k in w.shape[:3]))
         t = mask_extents(affine_relu(x, s, b, relu), ext)

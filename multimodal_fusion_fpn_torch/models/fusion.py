@@ -78,6 +78,7 @@ class ModifiedUnet3D2D(nn.Module):
             raise NotImplementedError(
                 "the port supports is_batchnorm=True, is_deconv=False")
         ch = spec.channels
+        self.dropout = tuple(spec.dropout)
         self.interpolate = interpolate
         cins = (1,) + tuple(ch[:4])
         for i in range(5):
@@ -91,6 +92,20 @@ class ModifiedUnet3D2D(nn.Module):
                     UpBlockFusion(lows[i], ch[lvl], UPFACTORS[i]))
         self.final1 = Conv1x1(ch[0], n_classes)
 
+    def _refuse_dropout(self):
+        """The JAX package applies each block's dropout in training
+        (``blocks.py:777-778``) and then runs that stage off its fused
+        kernels; the port has no dropout yet (ROADMAP M8), so a spec with
+        any slot > 0 cannot train here.  In eval dropout is the identity."""
+        for slot, p in enumerate(self.dropout):
+            if p > 0:
+                where = (f"encoder level {slot + 1} (conv{slot + 1}, "
+                         f"conv{slot + 1}_2d)" if slot < 5 else
+                         f"decoder block up_concat{9 - slot}")
+                raise NotImplementedError(
+                    f"dropout slot {slot} ({where}) is {p}: the port does not "
+                    f"apply dropout in training yet (ROADMAP M8)")
+
     def forward(self, volume: torch.Tensor, enface: torch.Tensor,
                 kernels: bool = True, ext3d=None, ext2d=None,
                 block_fusion: Optional[str] = None) -> torch.Tensor:
@@ -99,6 +114,8 @@ class ModifiedUnet3D2D(nn.Module):
         the true extents of the zero-padded inputs, or None.
         ``block_fusion``: None, "pair" or "chain", the eval block fusion
         of the 3D encoder stages (``blocks.ConvX``)."""
+        if self.training:
+            self._refuse_dropout()
         skips2d, exts2d = run_2d_encoder(
             [getattr(self, f"conv{i + 1}_2d") for i in range(5)], enface,
             POOLS_2D, kernels, ext2d)

@@ -1,16 +1,17 @@
 """Ops of the port: plain tensor functions and the hand-written kernels.
 
-Each kernel module (``fused_conv``, ``pool``, ``fused_block``) keeps a
-plain-integer launch count per kernel and the call shapes those launches
-ran at; :func:`kernel_launches` reads the counts and
+Each kernel module (``fused_conv``, ``pool``, ``fused_block``,
+``banded_conv``) keeps a plain-integer launch count per kernel and the call
+shapes those launches ran at; :func:`kernel_launches` reads the counts and
 :func:`reset_launches` sets them to zero.
 """
 
 from typing import Dict
 
-from multimodal_fusion_fpn_torch.ops import fused_block, fused_conv, pool
+from multimodal_fusion_fpn_torch.ops import (banded_conv, fused_block,
+                                             fused_conv, pool)
 
-KERNEL_MODULES = (fused_conv, pool, fused_block)
+KERNEL_MODULES = (fused_conv, pool, fused_block, banded_conv)
 
 
 def kernel_launches() -> Dict[str, int]:

@@ -206,14 +206,14 @@ def fused_conv_bwd_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
     return (*fused_conv_dgrad_plain(*args), fused_conv_wgrad_plain(*args))
 
 
-def _check_extents(x, dyn_extents):
+def _check_extents(x, dyn_extents, who="fused_conv"):
     """The extents as three ints within x's (Y, X, Z), or None."""
     if dyn_extents is None:
         return None
     ext = tuple(int(e) for e in dyn_extents)
     if len(ext) != 3 or not all(1 <= e <= n
                                 for e, n in zip(ext, x.shape[1:4])):
-        raise ValueError(f"fused_conv: extents {tuple(dyn_extents)} outside "
+        raise ValueError(f"{who}: extents {tuple(dyn_extents)} outside "
                          f"x's (Y, X, Z) {tuple(x.shape[1:4])}")
     return ext
 

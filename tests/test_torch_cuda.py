@@ -471,3 +471,167 @@ def test_block_fusion_model_on_the_card_matches_per_conv(gen, mode):
         (23, 3) if mode == "chain" else (25, 6))
     err = (got.double() - ref.double()).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+# --- the narrow-entry conv (K10) ---------------------------------------------
+
+# (x shape, taps, co): the 3D and 2D entry convs and the 1x1x1 downsample
+# (ci 1 -> co 16) at ragged shapes, the data gradient's instance (ci 16 ->
+# co 1), a ci no multiple of 8, and ci = co = 64 with 27 taps (the weights
+# then go through shared memory in chunks of taps)
+BANDED_CASES = [((2, 5, 13, 45, 1), (1, 3, 3), 16),
+                ((1, 9, 1, 40, 1), (1, 1, 3), 16),
+                ((2, 3, 5, 37, 1), (1, 1, 1), 16),
+                ((2, 5, 13, 45, 16), (1, 3, 3), 1),
+                ((1, 4, 7, 33, 3), (3, 1, 3), 32),
+                ((1, 3, 5, 20, 64), (3, 3, 3), 64)]
+
+
+def _banded_args(gen, shape, taps, co, dtype):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = rnd(*shape).to(dtype)
+    w = (rnd(*taps, shape[-1], co) / (shape[-1] * 9) ** 0.5).to(dtype)
+    g = rnd(*shape[:4], co).to(dtype)
+    return x, w, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,taps,co", BANDED_CASES)
+def test_banded_conv_kernel_matches_plain(gen, shape, taps, co, dtype):
+    from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
+    x, w, g = _banded_args(gen, shape, taps, co, dtype)
+    before = dict(tbc.launches)
+    y = tbc.banded_conv(x, w)
+    torch.cuda.synchronize()
+    assert tbc.launches["banded_conv"] == before["banded_conv"] + 1
+    ref = tbc.banded_conv_plain(x, w)
+    assert y.shape == ref.shape and y.dtype == dtype
+    _assert_close(y, ref, dtype)
+    # the weight gradient: against plain, and bitwise repeatable
+    dw = tbc.banded_conv_wgrad(x, g, w.shape)
+    assert dw.dtype == dtype and dw.shape == w.shape
+    _assert_close(dw, tbc.banded_conv_wgrad_plain(x, g, w.shape), dtype)
+    assert torch.equal(dw, tbc.banded_conv_wgrad(x, g, w.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,taps,co,ext", [
+    ((2, 5, 13, 45, 1), (1, 3, 3), 16, (4, 9, 31)),
+    ((1, 9, 1, 40, 1), (1, 1, 3), 16, (7, 1, 29)),
+    ((2, 3, 5, 37, 1), (1, 1, 1), 16, (3, 4, 36))])
+def test_banded_conv_extents_kernel_matches_plain(gen, shape, taps, co, ext,
+                                                  dtype):
+    """x random everywhere: the garbage beyond the extents reaches the
+    unmasked conv and not the kernel."""
+    from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
+    x, w, g = _banded_args(gen, shape, taps, co, dtype)
+    before = tbc.launches["banded_conv_dyn"]
+    y = tbc.banded_conv(x, w, dyn_extents=ext)
+    torch.cuda.synchronize()
+    assert tbc.launches["banded_conv_dyn"] == before + 1
+    ref = tbc.banded_conv_plain(x, w, ext)
+    _assert_close(y, ref, dtype)
+    assert not torch.equal(tbc.banded_conv_plain(x, w), ref)
+    whole = tuple(shape[1:4])
+    assert torch.equal(tbc.banded_conv(x, w, dyn_extents=whole),
+                       tbc.banded_conv(x, w))
+    _assert_close(tbc.banded_conv_wgrad(x, g, w.shape, ext),
+                  tbc.banded_conv_wgrad_plain(x, g, w.shape, ext), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_banded_conv_autograd_launches_its_kernels(gen, dtype):
+    """``BandedConv``: dw through the weight-gradient kernel, dx (only when
+    x needs it) through the forward kernel on the flipped weights."""
+    from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
+    x, w, g = _banded_args(gen, (2, 5, 13, 45, 1), (1, 3, 3), 16, dtype)
+    for x_grad in (False, True):
+        xg = x.clone().requires_grad_(x_grad)
+        wg = w.clone().requires_grad_()
+        before = dict(tbc.launches)
+        tbc.banded_conv(xg, wg).backward(g)
+        torch.cuda.synchronize()
+        grew = {k: tbc.launches[k] - before[k] for k in before}
+        assert grew == {"banded_conv": 1, "banded_conv_dyn": 0,
+                        "banded_conv_wgrad": 1,
+                        "banded_conv_dgrad": int(x_grad)}
+        _assert_close(wg.grad, tbc.banded_conv_wgrad_plain(x, g, w.shape),
+                      dtype)
+        if x_grad:
+            _assert_close(xg.grad, tbc.banded_conv_dgrad_plain(g, w), dtype)
+        else:
+            assert xg.grad is None
+
+
+@pytest.mark.cuda
+def test_banded_conv_never_takes_the_plain_version_on_the_card(
+        gen, monkeypatch):
+    from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
+    x, w, g = _banded_args(gen, (1, 2, 3, 16, 1), (1, 3, 3), 16,
+                           torch.float32)
+    with pytest.raises(ValueError, match="co in"):
+        tbc.banded_conv(x, w[..., :8].contiguous())
+    with pytest.raises(ValueError, match="taps"):
+        tbc.banded_conv(x, torch.zeros(1, 5, 3, 1, 16, device="cuda"))
+    with pytest.raises(ValueError, match="co in"):   # dx's kernel: co 16
+        tbc.banded_conv(torch.zeros(1, 2, 3, 16, 2, device="cuda",
+                                    requires_grad=True),
+                        torch.zeros(1, 3, 3, 2, 16, device="cuda"))
+
+    def failed_build(*args):
+        raise RuntimeError("kernel build failed")
+    for name in ("banded_conv_plain", "banded_conv_wgrad_plain",
+                 "banded_conv_dgrad_plain"):
+        monkeypatch.setattr(tbc, name, None)
+    monkeypatch.setattr(tbc, "_fn", failed_build)
+    for call in (lambda: tbc.banded_conv(x, w),
+                 lambda: tbc.banded_conv(x, w, dyn_extents=(1, 2, 9)),
+                 lambda: tbc.banded_conv_wgrad(x, g, w.shape),
+                 lambda: tbc.banded_conv_dgrad(g, w)):
+        with pytest.raises(RuntimeError, match="build failed"):
+            call()
+
+
+@pytest.mark.cuda
+def test_banded_conv_routing_on_the_card(gen):
+    """FPNHybridFusion at the ini widths, fp32: 4 K10 launches per
+    forward (the extents instance when bucketed) and one train step's 4
+    weight gradients, with no data gradient."""
+    from types import SimpleNamespace
+    from multimodal_fusion_fpn_torch import losses as tlosses
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    from multimodal_fusion_fpn_torch.train.optim import sgd
+    from multimodal_fusion_fpn_torch.train.state import create_train_state
+    from multimodal_fusion_fpn_torch.train.step import make_train_step
+    cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
+                          fusion_modality="slo", number_of_outputs=1)
+    model = build_model(cfg)
+    image = torch.randn(1, 1, 12, 72, 48, generator=gen, device="cuda")
+    slo = torch.randn(1, 1, 88, 1, 48, generator=gen, device="cuda")
+    padded = {"image": F.pad(image, (0, 16, 0, 8, 0, 4)),
+              "slo": F.pad(slo, (0, 16, 0, 0, 0, 8)),
+              "__valid_image__": (12, 72, 48), "__valid_enface__": (88, 48)}
+    K10 = ("banded_conv", "banded_conv_dyn", "banded_conv_wgrad",
+           "banded_conv_dgrad")
+    for batch, want in (({"image": image, "slo": slo}, (4, 0, 0, 0)),
+                        (padded, (0, 4, 0, 0))):
+        ops.reset_launches()
+        with torch.inference_mode():
+            model(batch)
+        torch.cuda.synchronize()
+        assert tuple(ops.kernel_launches()[k] for k in K10) == want
+    opt = sgd(model.parameters(), 0.1)
+    crit = tlosses.Mix({"Dice Loss": tlosses.dice_loss_joint(),
+                        "BCE loss": tlosses.bce_loss()})
+    step = make_train_step(model, opt, crit)
+    mask = (torch.rand(1, 1, 12, 1, 48, generator=gen, device="cuda")
+            > 0.7).float()
+    ops.reset_launches()
+    step(create_train_state(model, opt), {"image": image, "slo": slo,
+                                          "mask": mask})
+    torch.cuda.synchronize()
+    assert tuple(ops.kernel_launches()[k] for k in K10) == (4, 0, 4, 0)

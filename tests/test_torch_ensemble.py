@@ -42,7 +42,7 @@ def ensemble_case():
     template = jax.eval_shape(lambda: jmodel.init(
         {"params": jax.random.PRNGKey(0)}, jb, train=False))
     members = [random_trees(template, seed=20 + i) for i in range(N_MEMBERS)]
-    stack = lambda trees: jax.tree.map(lambda *a: jnp.stack(a), *trees)
+    stack = lambda trees: jax.tree.map(lambda *a: np.stack(a), *trees)
     args = (stack([p for p, _ in members]), stack([s for _, s in members]),
             jb)
     lowered = jax_ensemble_step(jmodel).lower(*args)

@@ -37,9 +37,9 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 # threads, which under pytest-xdist take the cores from the other workers:
 # level 0 halves the CPU time of a full-width FPNHybridFusion compile.  The
 # forward references compiled so agree with the default level's to a few
-# float32 ulps, far inside the tolerances; the float64 train step of
+# float32 ulps, far inside the tolerances; the float64 train steps of
 # ``tests/test_torch_train.py`` returned NaN losses there, so that file
-# keeps the default level.
+# chooses a level per step (its ``LEVELS``).
 COMPILE_OPTIONS = {"xla_backend_optimization_level": 0}
 
 

@@ -28,6 +28,7 @@ from multimodal_fusion_fpn_tpu.ops.pallas import pool as jpool
 
 from multimodal_fusion_fpn_torch import ops
 from multimodal_fusion_fpn_torch.ops import _build
+from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
 from multimodal_fusion_fpn_torch.ops import fused_block as tfb
 from multimodal_fusion_fpn_torch.ops import fused_conv as tfc
 from multimodal_fusion_fpn_torch.ops import pool as tpool
@@ -580,15 +581,27 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
         tfb.fused_pair(x, s, b, w, s, b, w, True, dyn_extents=(1, 2, 5)),
         tfb.fused_pair_plain(x, s, b, w, s, b, w, True, (1, 2, 5)),
         rtol=0, atol=0)
+    # the banded conv (K10), its extents instance and both gradients
+    x1, w1 = x[..., :1].contiguous(), w[..., :1, :]
+    torch.testing.assert_close(tbc.banded_conv(x1, w1, (1, 2, 5)),
+                               tbc.banded_conv_plain(x1, w1, (1, 2, 5)),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        tbc.banded_conv_wgrad(x1, g, w1.shape),
+        tbc.banded_conv_wgrad_plain(x1, g, w1.shape), rtol=0, atol=0)
+    tbc.banded_conv(x1.clone().requires_grad_(), w1).sum().backward()
     launches = ops.kernel_launches()
     assert set(launches) == {
         "fused_conv", "fused_conv_ky3", "fused_conv_stats",
         "fused_conv_ky3_stats", "fused_conv_dgrad", "fused_conv_wgrad",
         "fused_conv_ky3_dgrad", "fused_conv_ky3_wgrad", "fused_conv_dyn",
         "fused_conv_dyn_ky3", "max_pool3d_cl", "max_pool3d_cl_bwd",
-        "fused_chain", "fused_pair", "fused_chain_dyn", "fused_pair_dyn"}
+        "fused_chain", "fused_pair", "fused_chain_dyn", "fused_pair_dyn",
+        "banded_conv", "banded_conv_dyn", "banded_conv_wgrad",
+        "banded_conv_dgrad"}
     assert not any(launches.values()), launches
     assert not tfc.calls and not tpool.calls and not tfb.calls
+    assert not tbc.calls
 
 
 @pytest.mark.parametrize("bad,match", [
