@@ -7,7 +7,10 @@ Phases, each of which fails the run on any error:
 
 1. Build the CUDA kernels from ``multimodal_fusion_fpn_torch/csrc``
    (``nvcc`` for sm_90a, one process per source, in parallel) and print
-   the card's name and power limit.
+   the card's name and power limit.  Count the ``HMMA`` (tensor-core)
+   instructions of each kernel of the bf16 backward
+   (``csrc/fused_conv_bwd_mma.cu``) in its SASS (``cuobjdump
+   --dump-sass``); a kernel without one fails the run.
 2. Eval kernels (K1, K2, K5f) against their plain PyTorch versions, on
    the card, at every call shape of one member's eval forward at each of
    the two configurations below.  fp32 runs with TF32 off and must agree
@@ -29,9 +32,18 @@ Phases, each of which fails the run on any error:
 4. Train kernels (the stats epilogue of K1/K2, K3 and K4 as dgrad and
    wgrad, K5b) against their plain versions at every call shape of one
    train step at each configuration, with the same tolerances (K5b exact,
-   on inputs full of ties).  Library calls: ``aten.convolution_backward``
-   (dgrad or wgrad on the activated input) and the ``F.max_pool3d``
-   backward.
+   on inputs full of ties); two runs bitwise equal.  Library calls:
+   ``aten.convolution_backward`` (dgrad or wgrad on the activated input)
+   and the ``F.max_pool3d`` backward.  In bf16 dgrad and wgrad run on the
+   tensor cores; at each of their shapes they are also held against the
+   bf16 CUDA-core instance (``tensor_cores=False``), which multiplies the
+   same operands: cosine >= 0.99999, dx / dw within 2^-7 * max|ref|, ds /
+   db within 1e-4 * max|ref|; the line has its time (``cuda_cores_ms``).
+   The backward lines time the kernels, both instances in turns, and the
+   library call on the device alone (``device_ms``: queued behind a long
+   matmul, so the launcher's host time, which exceeds the kernel's at the
+   2D-stage shapes, stays out); ``host_bound_ms`` is the launcher timed as
+   the other phases time theirs.
 5. Train, end to end: one ``make_train_step`` (SGD lr 0.1, momentum 0.9,
    weight decay 1e-4, Mix(Dice + BCE)) from the same seeded weights and
    batch on the kernel path, on ``kernels=False`` and, as the reference,
@@ -131,7 +143,8 @@ Phases, each of which fails the run on any error:
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8; max-abs-err of its fp32 comparisons;
-   per-step times summed over the bf16 B=4 calls; the data gradient of
+   per-step times summed over the bf16 B=4 calls, for the backward also
+   the bf16 CUDA-core instance's (``cuda_cores_ms``); the data gradient of
    K10, off the path, with 0 launches and ``on_main_path`` false), the
    card line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -177,6 +190,7 @@ SERVE_BATCH = 4
 SPACING = (0.12, 0.0039, 0.0117)   # mm per (D, H, W) voxel
 _FC = "multimodal_fusion_fpn_torch/csrc/fused_conv.cu"
 _FCB = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd.cu"
+_FCBM = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd_mma.cu"
 _POOL = "multimodal_fusion_fpn_torch/csrc/pool.cu"
 _FB = "multimodal_fusion_fpn_torch/csrc/fused_block.cu"
 _BC = "multimodal_fusion_fpn_torch/csrc/banded_conv.cu"
@@ -190,10 +204,10 @@ KERNELS = {
     "max_pool3d_cl": (_POOL, f"{_TPU_POOL}:117", "ensemble"),
     "fused_conv_stats": (_FC, f"{_TPU_FC}:375", "train"),
     "fused_conv_ky3_stats": (_FC, f"{_TPU_FC}:2580", "train"),
-    "fused_conv_dgrad": (_FCB, f"{_TPU_FC}:2034", "train"),
-    "fused_conv_wgrad": (_FCB, f"{_TPU_FC}:2034", "train"),
-    "fused_conv_ky3_dgrad": (_FCB, f"{_TPU_FC}:2721", "train"),
-    "fused_conv_ky3_wgrad": (_FCB, f"{_TPU_FC}:2721", "train"),
+    "fused_conv_dgrad": (_FCBM, f"{_TPU_FC}:2034", "train"),
+    "fused_conv_wgrad": (_FCBM, f"{_TPU_FC}:1855", "train"),
+    "fused_conv_ky3_dgrad": (_FCBM, f"{_TPU_FC}:2721", "train"),
+    "fused_conv_ky3_wgrad": (_FCBM, f"{_TPU_FC}:2880", "train"),
     "max_pool3d_cl_bwd": (_POOL, f"{_TPU_POOL}:132", "train"),
     "fused_conv_dyn": (_FC, f"{_TPU_FC}:445", "bucketed"),
     "fused_conv_dyn_ky3": (_FC, f"{_TPU_FC}:2594", "bucketed"),
@@ -206,6 +220,13 @@ KERNELS = {
     "banded_conv_wgrad": (_BC, f"{_TPU_BC}:66", "train"),
     "banded_conv_dgrad": (_BC, f"{_TPU_BC}:66", "train"),
 }
+# the backward kernels: bf16 (the main path's) on the tensor cores, fp32 on
+# the CUDA cores; the TPU kernels each one stands for
+BWD_INSTANCES = {"bf16": _FCBM, "fp32": _FCB}
+BWD_ROWS = {"fused_conv_dgrad": "K3 dx, ds, db (and K9 _rf_dx_kernel)",
+            "fused_conv_wgrad": "K6 / K3 band cotangent (and K9)",
+            "fused_conv_ky3_dgrad": "K4 dx, ds, db",
+            "fused_conv_ky3_wgrad": "K6 _yck_dband_kernel / K4 band"}
 # checked at the train shapes, but not launched by the train step: the
 # data gradient of the narrow convs, whose input is the data
 OFF_PATH = ("banded_conv_dgrad",)
@@ -249,6 +270,31 @@ def time_ms(fn, reps=10, warm=2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+_BUSY = []
+
+
+def device_ms(fn, reps=10, warm=2):
+    """Device time per call: the calls are queued behind a long matmul, so
+    the host's launch time stays out of the timed window (at the small
+    2D-stage shapes a launch's host time exceeds the kernel's)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    if not _BUSY:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        _BUSY.append(torch.randn(6144, 6144, generator=g, device="cuda"))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _BUSY[0] @ _BUSY[0]
     start.record()
     for _ in range(reps):
         fn()
@@ -424,9 +470,29 @@ def check_stats_shape(key, n_calls, gen):
                 bitwise_repeatable=same, max_err=err, **st1, **st2)
 
 
+def same_operands(pairs):
+    """(ok, per-name stats): the tensor-core backward against the bf16
+    CUDA-core instance, which multiplies the same bf16 operands and sums in
+    another order: cosine >= 0.99999, dx / dw within 2^-7 * max|ref|, ds /
+    db within 1e-4 * max|ref|."""
+    import torch
+    ok, stats = True, {}
+    for name, got, ref in pairs:
+        got, ref = got.double(), ref.double()
+        cos = torch.nn.functional.cosine_similarity(
+            got.flatten(), ref.flatten(), dim=0).item()
+        err, peak = (got - ref).abs().max().item(), ref.abs().max().item()
+        tol = 2 ** -7 if name in ("dx", "dw") else 1e-4
+        o = cos >= 0.99999 and err <= tol * peak
+        ok &= o
+        stats[name] = dict(cos=cos, max_err=err, max_ref=peak, ok=o)
+    return ok, stats
+
+
 def check_bwd_shape(key, n_calls, gen):
     """dgrad (dx, ds, db) or wgrad (dw) vs its plain half, with the stats
-    cotangent where the recorded call had it; two runs bitwise equal."""
+    cotangent where the recorded call had it; two runs bitwise equal; in
+    bf16 (the tensor cores) also vs the bf16 CUDA-core instance."""
     import torch
     from multimodal_fusion_fpn_torch.ops import fused_conv as fc
     name, xs, ws, sz, relu, affine, stats, dts = key[:8]
@@ -440,24 +506,33 @@ def check_bwd_shape(key, n_calls, gen):
                0.01 * torch.randn(ws[4], generator=gen, device="cuda"))
     args = (x, s, b, w, g, relu, sz, cot)
     dgrad = name.endswith("dgrad")
+    launch = fc._launch_dgrad if dgrad else fc._launch_wgrad
     if dgrad:
-        run = lambda: fc._launch_dgrad(*args)
+        run = lambda tc=True: launch(*args, tensor_cores=tc)
         plain = lambda: fc.fused_conv_dgrad_plain(*args)
         names = ("dx", "ds", "db")
         mask = (True, False, False)
     else:
-        run = lambda: fc._launch_wgrad(*args)
-        plain = lambda: fc.fused_conv_wgrad_plain(*args)
+        run = lambda tc=True: (launch(*args, tensor_cores=tc),)
+        plain = lambda: (fc.fused_conv_wgrad_plain(*args),)
         names = ("dw",)
         mask = (False, True, False)
     wrap = fc.fused_conv_bwd(*args)  # the public wrapper, both kernels
     got = wrap[:3] if dgrad else wrap[3:]
-    ref = plain() if dgrad else (plain(),)
-    again = run() if dgrad else (run(),)
+    ref = plain()
+    again = run()
     pairs = [(n, a, r) for n, a, r in zip(names, got, ref) if r is not None]
     ok, st, err = compare_all(pairs, dt)
     same = all(torch.equal(a, c) for a, c in zip(got, again)
                if a is not None)
+    tc = dt == torch.bfloat16
+    rec = {}
+    if tc:
+        cores = run(False)
+        ok_c, st_c = same_operands(
+            [(n, a, c) for n, a, c in zip(names, got, cores) if a is not None])
+        rec = dict(vs_cuda_cores_ok=ok_c, vs_cuda_cores=st_c)
+        ok &= ok_c
     # library: cuDNN's backward of the plain conv on the activated input
     t = fc.affine_relu(x, s, b, relu).permute(0, 4, 1, 2, 3)
     wl = w.permute(4, 3, 0, 1, 2).contiguous()
@@ -475,14 +550,23 @@ def check_bwd_shape(key, n_calls, gen):
     if affine:
         nbytes += 2 * xs[-1] * esize + (2 * xs[-1] * 4 if dgrad else 0)
     b_ms, b_by = bound(nbytes, flops, dts)
+    # device times (device_ms), the tensor-core and CUDA-core instances in
+    # turns; host_bound_ms: the launcher timed as time_ms times the others
+    times = {True: [], False: []}
+    for inst in ((True, False, False, True) if tc else (True,)):
+        times[inst].append(device_ms(lambda: run(inst)))
     return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
                 relu=relu, affine=affine, stats_cotangent=stats,
                 calls_per_step=n_calls, flop=flops, bytes=nbytes,
+                tensor_cores=tc,
+                source=BWD_INSTANCES["bf16" if tc else "fp32"],
                 bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
-                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
-                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
-                ok=ok and same, bitwise_repeatable=same, max_err=err,
-                outputs=st)
+                kernel_ms=min(times[True]),
+                cuda_cores_ms=min(times[False]) if tc else None,
+                host_bound_ms=time_ms(run),
+                plain_ms=time_ms(plain), library_ms=device_ms(lib),
+                bound_ms=b_ms, bound_by=b_by, ok=ok and same,
+                bitwise_repeatable=same, max_err=err, outputs=st, **rec)
 
 
 def check_pool_shape(key, n_calls, gen):
@@ -613,6 +697,31 @@ def check_banded_shape(key, n_calls, gen):
                 library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
                 ok=ok and same and garbage_shows, bitwise_repeatable=same,
                 garbage_shows=garbage_shows, **stats)
+
+
+def hmma_counts(lib):
+    """{kernel: HMMA instructions in its SASS} for the dgrad / wgrad
+    kernels of ``lib`` (``cuobjdump --dump-sass``, from the toolkit beside
+    nvcc), names demangled to their template arguments."""
+    import os
+    import re
+    from multimodal_fusion_fpn_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            m2 = re.search(r"([dw]grad_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)"
+                           r"ELi(\d+)ELi(\d+)E", m.group(1))
+            name = (None if m2 is None else
+                    f"{m2.group(1)}<{','.join(m2.groups()[1:])}>")
+            if name is not None:
+                counts[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 def recorded_calls():
@@ -1444,15 +1553,20 @@ def main() -> int:
     t_start = time.time()
 
     # --- 1. build ---------------------------------------------------------
-    libs = ["fused_conv", "fused_conv_bwd", "pool", "fused_block",
-            "banded_conv"]
+    libs = ["fused_conv", "fused_conv_bwd", "fused_conv_bwd_mma", "pool",
+            "fused_block", "banded_conv"]
     _build.build(libs)
     for name in libs:
         _build.load(name)
     card = card_line()
     print(card, flush=True)
+    hmma = hmma_counts(_build.library_path("fused_conv_bwd_mma"))
     emit({"phase": "build", "seconds": time.time() - t_start,
-          "libraries": [_build.library_path(n) for n in libs]})
+          "libraries": [_build.library_path(n) for n in libs],
+          "hmma_per_bf16_backward_kernel": hmma})
+    no_tc = [k for k, n in hmma.items() if n == 0]
+    if not hmma or no_tc:
+        failures.append(f"bf16 backward kernels without HMMA: {no_tc or hmma}")
 
     cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
                           fusion_modality="slo", number_of_outputs=1)
@@ -1877,6 +1991,10 @@ def main() -> int:
                            else per_step(main, "library_ms"))})
         if main and "per_conv_ms" in main[0]:
             summary[-1]["per_conv_ms"] = per_step(main, "per_conv_ms")
+        if name in BWD_ROWS:
+            summary[-1].update(
+                tpu_rows=BWD_ROWS[name], instances=BWD_INSTANCES,
+                cuda_cores_ms=per_step(main, "cuda_cores_ms"))
         if name in OFF_PATH:
             summary[-1]["on_main_path"] = False
             if launches != 0:

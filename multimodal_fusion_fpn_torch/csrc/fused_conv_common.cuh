@@ -191,6 +191,47 @@ __device__ __forceinline__ void block_sums32(float* v, float* red, float* out) {
   }
 }
 
+// ---- tensor-core fragments (fused_conv_bwd_mma.cu) ------------------------
+//
+// mma.sync m16n8k16, bf16 operands, fp32 accumulators.  Fragments come from
+// shared memory by ldmatrix, each lane giving the address of one 16-byte row
+// of an 8x8 matrix, so a row can start anywhere (a tap's shift is an address
+// offset).  Lane l gives, for the four matrices of an x4 load:
+//   rows_a: row l & 15, column 8 * (l >> 4): an A fragment (m16 x k16) of a
+//     row-major [m][k] tile, or (with .trans) a B fragment pair (k16 x n16)
+//     of a row-major [k][n] tile;
+//   rows_b: row (l & 7) + 8 * (l >> 4), column 8 * ((l >> 3) & 1): a B
+//     fragment pair (k16 x n16) of an [n][k] tile, or (with .trans) an A
+//     fragment of a [k][m] tile.
+// A B pair's registers {0, 1} are the first n8 tile's, {2, 3} the second's.
+__device__ __forceinline__ int frag_row_a(int lane) { return lane & 15; }
+__device__ __forceinline__ int frag_col_a(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int frag_row_b(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int frag_col_b(int lane) { return ((lane >> 3) & 1) * 8; }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a * b on one m16n8k16 tile (fp32 accumulators).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // partial: (groups, n_tiles, 32) per-block sums.  One block per group adds
 // its n_tiles rows in a fixed order; sums 0..15 go to a[group*16 + k] and
 // 16..31 to b[group*16 + k].

@@ -44,13 +44,23 @@ Source note.  The CUDA kernels replace the TPU kernels of
   (dw, the function of the split path's ``_dband_kernel``, K6), counted as
   ``"fused_conv_dgrad"`` / ``"fused_conv_wgrad"`` for kY == 1 and
   ``"fused_conv_ky3_dgrad"`` / ``"fused_conv_ky3_wgrad"`` for kY == 3.
+  These are the fp32 instances.
+* ``csrc/fused_conv_bwd_mma.cu``: the bf16 instances of the same dgrad
+  and wgrad, on the tensor cores (``mma.sync``), counted under the same
+  names; they also compute the function of the roll-free merged backward
+  ``_rf_dx_kernel`` (K9, ``MMF_ROLLFREE=1``), as the forward kernels
+  compute that of ``_rf_kernel``.  The bf16 CUDA-core instances of
+  ``fused_conv_bwd.cu`` stay reachable through the private
+  ``tensor_cores=False`` of :func:`_launch_dgrad` / :func:`_launch_wgrad`,
+  for comparing the two on the card.
 
 The TPU kernel's second input (``n_in=2``) is unused on every model path
 and is left out; so is its ``preferred_element_type`` (the models always
-emit the compute dtype).  At the stage 1-3 shapes a call is compute-bound
-on the H100 (about 37 GFLOP against 0.5 GB of bf16 traffic at B=4); the
-kernels run on the fp32 CUDA cores with their input tiles in shared memory
-(see the .cu headers).  Tensor cores are later work.
+emit the compute dtype).  At the stage 1-3 shapes a call is about 37 GFLOP
+against 0.5 GB of bf16 traffic at B=4: bound by the FMA rate on the fp32
+CUDA cores, by bytes on the tensor cores.  The forward kernels and the
+fp32 backward run on the CUDA cores with their input tiles in shared
+memory (see the .cu headers).
 
 bf16: the prologue rounds like the JAX bf16 prologue (``x*s`` and then
 ``+b`` each rounded to bf16), products accumulate in fp32 and each output
@@ -336,24 +346,42 @@ def _launch_forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None):
     return (out, s1, s2) if with_stats else out
 
 
-def _launch_dgrad(x, scale, bias, w, g, relu, stride_z, stats_cot):
-    """dx, ds, db (K3 / K4 dgrad) on CUDA tensors."""
+def _launch_dgrad(x, scale, bias, w, g, relu, stride_z, stats_cot,
+                  tensor_cores=True):
+    """dx, ds, db (K3 / K4 dgrad) on CUDA tensors: bf16 on the tensor cores
+    (``csrc/fused_conv_bwd_mma.cu``), fp32 on the CUDA cores.
+    ``tensor_cores=False`` takes the bf16 CUDA-core instance: only for
+    comparing the two on the card; the model never passes it."""
     B, Y, X, Z, ci = x.shape
     kY, kX, kz, _, co = w.shape
     y, gs1, gs2 = stats_cot if stats_cot is not None else (None,) * 3
+    mma = tensor_cores and x.dtype == torch.bfloat16
+    lib = "fused_conv_bwd_mma" if mma else "fused_conv_bwd"
     dx = torch.empty_like(x)
     ds = db = work = None
     if scale is not None:
         ds = torch.empty(ci, dtype=torch.float32, device=x.device)
         db = torch.empty_like(ds)
-        work = _work(_fn("fused_conv_bwd", "mmf_fused_conv_dgrad_work_bytes",
-                         [_INT] * 5, _SIZE)(B, Y, X, Z, ci), x.device)
-    fn = _fn("fused_conv_bwd", "mmf_fused_conv_dgrad",
-             [_INT] * 5 + [_PTR] * 12 + [_INT] * 8 + [_PTR])
-    rc = fn(_DTYPES[x.dtype], kY, kX, kz, stride_z, x.data_ptr(), _ptr(scale),
-            _ptr(bias), w.data_ptr(), g.data_ptr(), _ptr(y), _ptr(gs1),
-            _ptr(gs2), dx.data_ptr(), _ptr(ds), _ptr(db), _ptr(work), B, Y, X,
-            Z, g.shape[3], ci, co, int(relu), _stream(x))
+        if mma:
+            nbytes = _fn(lib, "mmf_fused_conv_dgrad_mma_work_bytes",
+                         [_INT] * 10, _SIZE)(kY, kX, kz, stride_z, B, Y, X,
+                                             Z, ci, co)
+        else:
+            nbytes = _fn(lib, "mmf_fused_conv_dgrad_work_bytes", [_INT] * 5,
+                         _SIZE)(B, Y, X, Z, ci)
+        work = _work(nbytes, x.device)
+    ptrs = (x.data_ptr(), _ptr(scale), _ptr(bias), w.data_ptr(),
+            g.data_ptr(), _ptr(y), _ptr(gs1), _ptr(gs2), dx.data_ptr(),
+            _ptr(ds), _ptr(db), _ptr(work), B, Y, X, Z, g.shape[3], ci, co,
+            int(relu), _stream(x))
+    if mma:
+        fn = _fn(lib, "mmf_fused_conv_dgrad_mma",
+                 [_INT] * 4 + [_PTR] * 12 + [_INT] * 8 + [_PTR])
+        rc = fn(kY, kX, kz, stride_z, *ptrs)
+    else:
+        fn = _fn(lib, "mmf_fused_conv_dgrad",
+                 [_INT] * 5 + [_PTR] * 12 + [_INT] * 8 + [_PTR])
+        rc = fn(_DTYPES[x.dtype], kY, kX, kz, stride_z, *ptrs)
     if rc != 0:
         raise RuntimeError(
             f"fused_conv_bwd: dgrad launch failed, CUDA error {rc}")
@@ -361,22 +389,35 @@ def _launch_dgrad(x, scale, bias, w, g, relu, stride_z, stats_cot):
     return dx, ds, db
 
 
-def _launch_wgrad(x, scale, bias, w, g, relu, stride_z, stats_cot):
-    """dw (K3 / K4 wgrad) on CUDA tensors."""
+def _launch_wgrad(x, scale, bias, w, g, relu, stride_z, stats_cot,
+                  tensor_cores=True):
+    """dw (K3 / K4 wgrad) on CUDA tensors; dtypes and ``tensor_cores`` as
+    for :func:`_launch_dgrad`."""
     B, Y, X, Z, ci = x.shape
     kY, kX, kz, _, co = w.shape
     Zo = g.shape[3]
     y, gs1, gs2 = stats_cot if stats_cot is not None else (None,) * 3
+    mma = tensor_cores and x.dtype == torch.bfloat16
+    lib = "fused_conv_bwd_mma" if mma else "fused_conv_bwd"
     dw = torch.empty(w.shape, dtype=x.dtype, device=x.device)
-    work = _work(_fn("fused_conv_bwd", "mmf_fused_conv_wgrad_work_bytes",
-                     [_INT] * 9, _SIZE)(kY, kX, kz, B, Y, X, Zo, ci, co),
-                 x.device)
-    fn = _fn("fused_conv_bwd", "mmf_fused_conv_wgrad",
-             [_INT] * 5 + [_PTR] * 9 + [_INT] * 8 + [_PTR])
-    rc = fn(_DTYPES[x.dtype], kY, kX, kz, stride_z, x.data_ptr(), _ptr(scale),
-            _ptr(bias), g.data_ptr(), _ptr(y), _ptr(gs1), _ptr(gs2),
-            dw.data_ptr(), work.data_ptr(), B, Y, X, Z, Zo, ci, co, int(relu),
-            _stream(x))
+    if mma:
+        nbytes = _fn(lib, "mmf_fused_conv_wgrad_mma_work_bytes", [_INT] * 10,
+                     _SIZE)(kY, kX, kz, stride_z, B, Y, X, Zo, ci, co)
+    else:
+        nbytes = _fn(lib, "mmf_fused_conv_wgrad_work_bytes", [_INT] * 9,
+                     _SIZE)(kY, kX, kz, B, Y, X, Zo, ci, co)
+    work = _work(nbytes, x.device)
+    ptrs = (x.data_ptr(), _ptr(scale), _ptr(bias), g.data_ptr(), _ptr(y),
+            _ptr(gs1), _ptr(gs2), dw.data_ptr(), work.data_ptr(), B, Y, X, Z,
+            Zo, ci, co, int(relu), _stream(x))
+    if mma:
+        fn = _fn(lib, "mmf_fused_conv_wgrad_mma",
+                 [_INT] * 4 + [_PTR] * 9 + [_INT] * 8 + [_PTR])
+        rc = fn(kY, kX, kz, stride_z, *ptrs)
+    else:
+        fn = _fn(lib, "mmf_fused_conv_wgrad",
+                 [_INT] * 5 + [_PTR] * 9 + [_INT] * 8 + [_PTR])
+        rc = fn(_DTYPES[x.dtype], kY, kX, kz, stride_z, *ptrs)
     if rc != 0:
         raise RuntimeError(
             f"fused_conv_bwd: wgrad launch failed, CUDA error {rc}")

@@ -54,6 +54,7 @@ from multimodal_fusion_fpn_torch.ops import dynamic_extent as tdyn
 from multimodal_fusion_fpn_torch.ops import fused_conv as tfc
 from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
 
+from rollfree_calls import rollfree_calls  # noqa: F401 (fixture)
 from test_torch_model import compile_ref, random_trees
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -147,35 +148,34 @@ def _jax_dyn(kshape, sz, impl, bs=8):
 
 
 @pytest.fixture(scope="module")
-def jax_dyn_convs():
+def jax_dyn_convs(rollfree_calls):
     """The JAX extents conv for every case below, keyed (kshape, z stride,
-    impl): traced one after another (the Pallas body in interpret mode),
-    compiled side by side in threads."""
+    impl): traced one after another (the Pallas body in interpret mode;
+    impl 'rollfree' the Pallas (1,3,3) one with MMF_ROLLFREE=1, counted by
+    ``rollfree_calls``), compiled side by side in threads."""
+    # the costliest compile first, so it overlaps the other traces
+    jobs = [((1, 3, 3), 1, "rollfree")]
+    jobs += [(k, sz, i) for k, sz in DYN_CASES for i in ("ref", "pallas")]
     pending = {}
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        for kshape, sz in DYN_CASES:
+        for kshape, sz, impl in jobs:
             args = [jnp.asarray(a) for a in _dyn_case(kshape, sz)]
-            for impl in ("ref", "pallas"):
-                jfc.set_interpret_mode(impl == "pallas")
+            key = (kshape, sz, impl)
+            with rollfree_calls.trace(key, impl == "rollfree"):
+                jfc.set_interpret_mode(impl != "ref")
                 try:
-                    lowered = jax.jit(_jax_dyn(kshape, sz, impl)).lower(
-                        *args)
+                    lowered = jax.jit(_jax_dyn(
+                        kshape, sz, "ref" if impl == "ref" else "pallas")
+                    ).lower(*args)
                 finally:
                     jfc.set_interpret_mode(False)
-                pending[(kshape, sz, impl)] = (
-                    pool.submit(compile_ref, lowered), args)
+            pending[key] = (pool.submit(compile_ref, lowered), args)
         return {k: np.asarray(c.result()(*args))
                 for k, (c, args) in pending.items()}
 
 
-@pytest.mark.parametrize("impl", ["ref", "pallas"])
-@pytest.mark.parametrize("case", DYN_CASES,
-                         ids=lambda c: "k" + "".join(map(str, c[0]))
-                         + f"s{c[1]}")
-def test_fused_conv_dyn_plain_matches_jax(case, impl, jax_dyn_convs):
-    kshape, sz = case
+def _check_dyn_case(kshape, sz, ref):
     x, s, b, w = _dyn_case(kshape, sz)
-    ref = jax_dyn_convs[(kshape, sz, impl)]
     t = lambda a: torch.from_numpy(a)
     got = tfc.fused_conv_dyn_plain(t(x), t(s), t(b), t(w), True, sz, EXTENTS)
     assert got.shape == ref.shape
@@ -184,6 +184,26 @@ def test_fused_conv_dyn_plain_matches_jax(case, impl, jax_dyn_convs):
     torch.testing.assert_close(
         tfc.fused_conv(t(x), t(s), t(b), t(w), True, sz,
                        dyn_extents=EXTENTS), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("case", DYN_CASES,
+                         ids=lambda c: "k" + "".join(map(str, c[0]))
+                         + f"s{c[1]}")
+def test_fused_conv_dyn_plain_matches_jax(case, impl, jax_dyn_convs):
+    kshape, sz = case
+    _check_dyn_case(kshape, sz, jax_dyn_convs[(kshape, sz, impl)])
+
+
+def test_fused_conv_dyn_plain_matches_jax_rollfree_body(jax_dyn_convs,
+                                                        rollfree_calls):
+    """K9 with extents: K7's plain version against the roll-free forward
+    body ``_rf_kernel`` (``with_dyn``, MMF_ROLLFREE=1) in interpret mode,
+    which ran, on garbage beyond the extents; no other case ran it."""
+    key = ((1, 3, 3), 1, "rollfree")
+    assert rollfree_calls.by_case[key]["_rf_kernel"] > 0
+    rollfree_calls.check()
+    _check_dyn_case((1, 3, 3), 1, jax_dyn_convs[key])
 
 
 def test_fused_conv_dyn_is_eval_only_and_checks_extents():

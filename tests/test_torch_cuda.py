@@ -10,7 +10,8 @@ The shapes are small and ragged (extents that are no multiple of the
 kernels' tiles); ``chip_smoke.py`` holds the kernels at the main path's
 full shapes.  fp32 runs with TF32 off and agrees to max-abs-err <=
 1e-4 * max|y|; bf16 by cosine >= 0.999 and a norm ratio within 1%; the
-pool is exact.
+pool is exact.  The bf16 backward on the tensor cores is also held against
+the bf16 CUDA-core instance, which multiplies the same operands.
 """
 
 import pytest
@@ -216,6 +217,90 @@ def test_fused_conv_bwd_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="gs1 must be"):
         tfc.fused_conv_bwd(x, s, b, w, g, True, 1,
                            (g, gs1.to(torch.bfloat16), gs2))
+
+
+# The bf16 backward on the tensor cores (``csrc/fused_conv_bwd_mma.cu``):
+# (x shape, taps, z stride, co) at every tap set, ci != co, X = 1 and Y, X,
+# Z no multiple of the tiles (8 rows, 32 z), the stride-2 cascade at even
+# and odd Z
+MMA_CASES = [((2, 5, 13, 45, 16), (1, 3, 3), 1, 16),
+             ((2, 4, 16, 40, 16), (1, 3, 3), 1, 32),
+             ((2, 4, 16, 40, 32), (1, 3, 3), 1, 64),
+             ((1, 3, 8, 40, 64), (1, 3, 3), 1, 64),
+             ((2, 5, 13, 45, 16), (3, 1, 1), 1, 16),
+             ((1, 9, 1, 40, 64), (3, 1, 1), 1, 64),
+             ((1, 9, 1, 40, 16), (1, 1, 3), 1, 32),
+             ((2, 3, 5, 37, 32), (1, 1, 1), 1, 64),
+             ((2, 4, 8, 62, 32), (1, 1, 3), 2, 32),
+             ((2, 3, 7, 31, 64), (1, 1, 3), 2, 64)]
+# (affine, relu, stats cotangent)
+MMA_MODES = [(True, True, True), (True, True, False), (False, False, False),
+             (False, True, True)]
+
+
+def _assert_same_operands(got, ref, name):
+    """The tensor-core result against the CUDA-core one, which multiplies
+    the same bf16 operands and sums in another order: cosine >= 0.99999,
+    dx / dw (bf16) within 2^-7 * max|ref|, ds / db (fp32) within 1e-4 *
+    max|ref|."""
+    got, ref = got.double(), ref.double()
+    cos = F.cosine_similarity(got.flatten(), ref.flatten(), dim=0).item()
+    err, peak = (got - ref).abs().max().item(), ref.abs().max().item()
+    tol = 2 ** -7 if name in ("dx", "dw") else 1e-4
+    assert cos >= 0.99999 and err <= tol * peak, (name, cos, err, peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine,relu,stats", MMA_MODES,
+                         ids=["affine_relu_stats", "affine_relu",
+                              "identity", "relu_stats"])
+@pytest.mark.parametrize("shape,taps,stride_z,co", MMA_CASES)
+def test_bf16_bwd_tensor_cores_match_plain_and_cuda_cores(
+        gen, shape, taps, stride_z, co, affine, relu, stats):
+    """dgrad and wgrad in bf16 on the tensor cores: against the plain
+    backward (bf16 tolerances), against the bf16 CUDA-core instance (the
+    same operands), two runs bitwise equal; the public backward takes
+    them, counted under the usual names."""
+    bf = torch.bfloat16
+    x, s, b, w, g, gs1, gs2 = _conv_args(gen, shape, taps, stride_z, affine,
+                                         bf, co=co)
+    cot = None
+    if stats:
+        cot = (tfc.fused_conv(x, s, b, w, relu, stride_z), gs1, gs2)
+    args = (x, s, b, w, g, relu, stride_z, cot)
+    k3 = "fused_conv_ky3" if taps[0] == 3 else "fused_conv"
+    before = (tfc.launches[k3 + "_dgrad"], tfc.launches[k3 + "_wgrad"])
+    public = tfc.fused_conv_bwd(*args)
+    torch.cuda.synchronize()
+    assert (tfc.launches[k3 + "_dgrad"],
+            tfc.launches[k3 + "_wgrad"]) == (before[0] + 1, before[1] + 1)
+    got = (*tfc._launch_dgrad(*args), tfc._launch_wgrad(*args))
+    cores = (*tfc._launch_dgrad(*args, tensor_cores=False),
+             tfc._launch_wgrad(*args, tensor_cores=False))
+    ref = tfc.fused_conv_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, p, c, r in zip(("dx", "ds", "db", "dw"), got, public,
+                                cores, ref):
+        if r is None:
+            assert a is None and c is None, name
+            continue
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert torch.equal(a, p), name
+        _assert_close(a, r, bf)
+        _assert_same_operands(a, c, name)
+
+
+@pytest.mark.cuda
+def test_fp32_bwd_keeps_the_cuda_cores(gen):
+    """fp32 takes the CUDA-core kernels whatever ``tensor_cores`` says."""
+    x, s, b, w, g, _, _ = _conv_args(gen, (1, 4, 8, 40, 16), (1, 3, 3), 1,
+                                     True, torch.float32)
+    args = (x, s, b, w, g, True, 1, None)
+    for a, c in zip(tfc._launch_dgrad(*args),
+                    tfc._launch_dgrad(*args, tensor_cores=False)):
+        assert torch.equal(a, c)
+    assert torch.equal(tfc._launch_wgrad(*args),
+                       tfc._launch_wgrad(*args, tensor_cores=False))
 
 
 def _tied(gen, shape, dtype):

@@ -36,6 +36,7 @@ from multimodal_fusion_fpn_torch.ops.interpolate import linear_resize
 from multimodal_fusion_fpn_torch.ops.pooling import adaptive_max_pool
 from multimodal_fusion_fpn_torch.ops.upsample import upsample_nearest
 
+from rollfree_calls import rollfree_calls  # noqa: F401 (fixture)
 from test_torch_model import compile_ref
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -102,11 +103,13 @@ def _jax_cascade(x, s, b, w, relu, impl, bs=8):
 
 
 @pytest.fixture(scope="module")
-def jax_forwards():
+def jax_forwards(rollfree_calls):
     """The JAX fused conv's output for every case of the two forward tests
     below, keyed ('conv', case, relu, affine, impl) or ('cascade', affine,
     relu, impl): traced one after another (the Pallas cases in interpret
-    mode), compiled side by side in threads."""
+    mode, counted by ``rollfree_calls``: none takes a roll-free body),
+    compiled side by side in threads.  The roll-free forward's references
+    come with its backward's (``jax_vjps``)."""
     jobs = [(("conv", c, r, a, i), _fwd_case(c, r, a),
              lambda x, s, b, w, r=r, i=i: _jax_fused(x, s, b, w, r, 8, i))
             for c in CONV_CASES for r in (True, False)
@@ -118,11 +121,12 @@ def jax_forwards():
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         for key, inputs, fn in jobs:
             args = [None if a is None else jnp.asarray(a) for a in inputs]
-            jfc.set_interpret_mode(key[-1] == "pallas")
-            try:
-                lowered = jax.jit(fn).lower(*args)
-            finally:
-                jfc.set_interpret_mode(False)
+            with rollfree_calls.trace(key, False):
+                jfc.set_interpret_mode(key[-1] == "pallas")
+                try:
+                    lowered = jax.jit(fn).lower(*args)
+                finally:
+                    jfc.set_interpret_mode(False)
             pending[key] = (pool.submit(compile_ref, lowered), args)
         return {k: np.asarray(c.result()(*args), np.float32)
                 for k, (c, args) in pending.items()}
@@ -243,8 +247,8 @@ BWD_CASES = [((1, 3, 3), 1), ((1, 1, 3), 1), ((1, 1, 3), 2), ((1, 1, 1), 1),
              ((3, 1, 1), 1)]
 
 
-def _bwd_inputs(kshape, stride_z, affine, seed, Z=16):
-    B, Y, X, ci, co = 1, 4, 4, 8, 16
+def _bwd_inputs(kshape, stride_z, affine, seed, Z=16, Y=4):
+    B, X, ci, co = 1, 4, 8, 16
     x, s, b, w = _conv_inputs(B, Y, X, Z, ci, co, kshape, affine, seed)
     rng = np.random.default_rng(seed + 100)
     Zo = (Z - 1) // stride_z + 1
@@ -277,6 +281,11 @@ def _port_bwd(x, s, b, w, g, gs1, gs2, relu, stride_z, stats):
 
 _BWD_IMPLS = ("ref", "pallas")
 _BWD_MODES = ((True, True), (False, False))   # (affine, relu)
+# K9: the roll-free bodies (MMF_ROLLFREE=1) on the (1,3,3) conv, (affine,
+# relu, stats): affine + ReLU without the stats and identity with them, at
+# a Y whose grid step holds G = 2 rows (the trace unrolls G)
+RF_BWD_CASES = [(True, True, False), (False, False, True)]
+RF_Y = 2
 
 
 def _bwd_seed(kshape, stride_z, affine, stats, split):
@@ -286,32 +295,40 @@ def _bwd_seed(kshape, stride_z, affine, stats, split):
 
 
 @pytest.fixture(scope="module")
-def jax_vjps():
+def jax_vjps(rollfree_calls):
     """(y, s1, s2, dx, ds, db, dw) of jax.vjp of the JAX fused conv, numpy,
-    for every case of the two backward tests below, keyed (kshape,
-    stride_z, affine, relu, stats, impl, split): traced one after another
-    (the Pallas cases in interpret mode, the split ones with
-    MMF_MERGED_BWD=0, both read while tracing), compiled side by side in
+    for every case of the backward tests below, keyed (kshape, stride_z,
+    affine, relu, stats, impl, split): traced one after another (the Pallas
+    cases in interpret mode, impl 'rollfree' the Pallas ones with
+    MMF_ROLLFREE=1, counted by ``rollfree_calls``, the split ones with
+    MMF_MERGED_BWD=0, all read while tracing), compiled side by side in
     threads."""
-    cases = [(k, sz, a, r, st, impl, False) for k, sz in BWD_CASES
-             for a, r in _BWD_MODES for st in (False, True)
-             for impl in _BWD_IMPLS]
+    # the costliest compiles first, so they overlap the other traces
+    cases = [((1, 3, 3), 1, a, r, st, "rollfree", False)
+             for a, r, st in RF_BWD_CASES]
     cases += [(k, sz, True, True, True, "pallas", True)
               for k, sz in BWD_CASES]
+    cases += [(k, sz, a, r, st, impl, False) for k, sz in BWD_CASES
+              for a, r in _BWD_MODES for st in (False, True)
+              for impl in _BWD_IMPLS]
     pending = {}
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         for case in cases:
             kshape, stride_z, affine, relu, stats, impl, split = case
             x, s, b, w, g, gs1, gs2 = _bwd_inputs(
                 kshape, stride_z, affine,
-                _bwd_seed(kshape, stride_z, affine, stats, split))
+                _bwd_seed(kshape, stride_z, affine, stats, split),
+                Y=RF_Y if impl == "rollfree" else 4)
             args = [jnp.asarray(a) if a is not None else None
                     for a in (x, w, s, b, g, gs1, gs2)]
-            fn = _jax_conv_vjp(4, 16, 8, relu, stride_z, stats, impl, affine)
-            with pytest.MonkeyPatch.context() as mp:
+            pallas = impl != "ref"
+            fn = _jax_conv_vjp(4, 16, 8, relu, stride_z, stats,
+                               "pallas" if pallas else "ref", affine)
+            with rollfree_calls.trace(case, impl == "rollfree"), \
+                    pytest.MonkeyPatch.context() as mp:
                 if split:
                     mp.setenv("MMF_MERGED_BWD", "0")
-                jfc.set_interpret_mode(impl == "pallas")
+                jfc.set_interpret_mode(pallas)
                 try:
                     lowered = jax.jit(fn).lower(*args)
                 finally:
@@ -328,23 +345,12 @@ def jax_vjps():
     return refs
 
 
-@pytest.mark.parametrize("impl", _BWD_IMPLS)
-@pytest.mark.parametrize("stats", [False, True], ids=["g", "g+stats"])
-@pytest.mark.parametrize("affine,relu", _BWD_MODES,
-                         ids=["affine_relu", "identity"])
-@pytest.mark.parametrize("kshape,stride_z", BWD_CASES,
-                         ids=lambda c: "".join(map(str, c))
-                         if isinstance(c, tuple) else f"s{c}")
-def test_fused_conv_bwd_matches_jax_vjp(kshape, stride_z, affine, relu,
-                                        stats, impl, jax_vjps):
-    """dx, ds, db, dw of the plain backward and of the autograd Function
-    against jax.vjp of the JAX fused conv (the XLA reference, or the Pallas
-    merged backward K3/K4 in interpret mode), with and without the stats
-    cotangent; the stats forward against ``out_stats``."""
+def _check_bwd_case(kshape, stride_z, affine, relu, stats, ref, Y=4):
+    """The port's stats forward, plain backward and autograd Function
+    against one jax.vjp reference (``jax_vjps``)."""
     x, s, b, w, g, gs1, gs2 = _bwd_inputs(
         kshape, stride_z, affine,
-        _bwd_seed(kshape, stride_z, affine, stats, False))
-    ref = jax_vjps[(kshape, stride_z, affine, relu, stats, impl, False)]
+        _bwd_seed(kshape, stride_z, affine, stats, False), Y=Y)
     fwd, plain, auto = _port_bwd(x, s, b, w, g, gs1, gs2, relu, stride_z,
                                  stats)
     _assert_rel(fwd[0].numpy(), ref[0], "y")
@@ -358,6 +364,75 @@ def test_fused_conv_bwd_matches_jax_vjp(kshape, stride_z, affine, relu,
                 assert got[j] is None, (how, name)
             else:
                 _assert_rel(got[j].detach().numpy(), ref[i], f"{how} {name}")
+
+
+@pytest.mark.parametrize("impl", _BWD_IMPLS)
+@pytest.mark.parametrize("stats", [False, True], ids=["g", "g+stats"])
+@pytest.mark.parametrize("affine,relu", _BWD_MODES,
+                         ids=["affine_relu", "identity"])
+@pytest.mark.parametrize("kshape,stride_z", BWD_CASES,
+                         ids=lambda c: "".join(map(str, c))
+                         if isinstance(c, tuple) else f"s{c}")
+def test_fused_conv_bwd_matches_jax_vjp(kshape, stride_z, affine, relu,
+                                        stats, impl, jax_vjps):
+    """dx, ds, db, dw of the plain backward and of the autograd Function
+    against jax.vjp of the JAX fused conv (the XLA reference, or the Pallas
+    merged backward K3/K4 in interpret mode), with and without the stats
+    cotangent; the stats forward against ``out_stats``."""
+    _check_bwd_case(kshape, stride_z, affine, relu, stats,
+                    jax_vjps[(kshape, stride_z, affine, relu, stats, impl,
+                              False)])
+
+
+_RF_IDS = ["affine_relu-g", "identity-g+stats"]
+
+
+@pytest.mark.parametrize("affine,relu,stats", RF_BWD_CASES, ids=_RF_IDS)
+def test_fused_conv_matches_jax_rollfree_body(affine, relu, stats,
+                                              jax_vjps, rollfree_calls):
+    """K9 forward: the port's plain version (``fused_conv`` on CPU
+    tensors, with the stats where the case has them) against the roll-free
+    Pallas body ``_rf_kernel`` in interpret mode (MMF_ROLLFREE=1), which
+    ran, at a Y whose grid step holds G > 1 rows: affine + ReLU without
+    the stats, identity with them.  The CUDA forward (``csrc/fused_conv.cu``)
+    computes this function; the card holds it against the plain version
+    (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+    key = ((1, 3, 3), 1, affine, relu, stats, "rollfree", False)
+    assert rollfree_calls.by_case[key]["_rf_kernel"] > 0
+    x, s, b, w, _, _, _ = _bwd_inputs(
+        (1, 3, 3), 1, affine, _bwd_seed((1, 3, 3), 1, affine, stats, False),
+        Y=RF_Y)
+    B, Y, X, Z, ci = x.shape
+    assert jfc._g1_G(Y, X * (Z // 8), 8 * w.shape[-1], 4, rf=True) > 1
+    ref = jax_vjps[key]
+    got = tfc.fused_conv(_t(x), _t(s), _t(b), _t(w), relu,
+                         with_stats=stats)
+    for name, a, r in zip(("y", "s1", "s2"), got if stats else (got,), ref):
+        np.testing.assert_allclose(a.numpy(), r, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("affine,relu,stats", RF_BWD_CASES, ids=_RF_IDS)
+def test_fused_conv_bwd_matches_jax_rollfree_body(affine, relu, stats,
+                                                  jax_vjps, rollfree_calls):
+    """K9 backward: the plain backward and the autograd Function against
+    jax.vjp through the roll-free bodies in interpret mode (MMF_ROLLFREE=1:
+    ``_rf_kernel`` forward and the merged ``_rf_dx_kernel``, whose band
+    cotangent is dw), which both ran, without and with the stats
+    cotangent.  The CUDA backward (``csrc/fused_conv_bwd.cu``, bf16
+    ``csrc/fused_conv_bwd_mma.cu``) computes this function; the card holds
+    it against the plain version."""
+    key = ((1, 3, 3), 1, affine, relu, stats, "rollfree", False)
+    calls = rollfree_calls.by_case[key]
+    assert calls["_rf_kernel"] > 0 and calls["_rf_dx_kernel"] > 0, calls
+    _check_bwd_case((1, 3, 3), 1, affine, relu, stats, jax_vjps[key], Y=RF_Y)
+
+
+def test_rollfree_bodies_ran_only_under_the_flag(jax_forwards, jax_vjps,
+                                                 rollfree_calls):
+    """The counting wrappers saw the roll-free bodies in every roll-free
+    case and in no default case (forward and backward references)."""
+    assert any("rollfree" in k for k in rollfree_calls.by_case)
+    rollfree_calls.check()
 
 
 @pytest.mark.parametrize("kshape,stride_z", BWD_CASES,
