@@ -8,8 +8,9 @@ Phases, each of which fails the run on any error:
 1. Build the CUDA kernels from ``multimodal_fusion_fpn_torch/csrc``
    (``nvcc`` for sm_90a, one process per source, in parallel) and print
    the card's name and power limit.  Count the ``HMMA`` (tensor-core)
-   instructions of each kernel of the bf16 backward
-   (``csrc/fused_conv_bwd_mma.cu``) in its SASS (``cuobjdump
+   instructions of each kernel of the bf16 forward
+   (``csrc/fused_conv_mma.cu``, all FWD_MMA_INSTANCES of them) and the bf16
+   backward (``csrc/fused_conv_bwd_mma.cu``) in its SASS (``cuobjdump
    --dump-sass``); a kernel without one fails the run.
 2. Eval kernels (K1, K2, K5f) against their plain PyTorch versions, on
    the card, at every call shape of one member's eval forward at each of
@@ -19,7 +20,16 @@ Phases, each of which fails the run on any error:
    plain version's and one library call's time (``library_ms``:
    ``F.conv3d`` on the already activated input, or ``F.max_pool3d``; a
    yardstick only, the port never calls it) and the least time the card
-   could take (``bound_ms``).
+   could take (``bound_ms``).  The fused conv must give the same output
+   twice (bitwise); in bf16 it runs on the tensor cores and is also held
+   against its bf16 CUDA-core instance (``tensor_cores=False``), which
+   multiplies the same operands: cosine >= 0.99999, y within 2^-7 *
+   max|ref| (``same_operands``), the line with that instance's time
+   (``cuda_cores_ms``).  The fused conv's times (both instances in turns,
+   and cuDNN's) are taken on the device alone (``device_ms``: queued
+   behind a long matmul, so the launcher's host time, which exceeds the
+   kernel's at the 2D-stage shapes, stays out); ``host_bound_ms`` is the
+   launcher timed as the plain versions are.
 3. Ensemble, end to end: the 5-member ensemble of FPNHybridFusion at the
    ini widths, seeded weights with seeded non-trivial BatchNorm running
    stats, at the crop shapes (OCT (B, 1, 32, 496, 128), SLO (B, 1, 320, 1,
@@ -34,16 +44,12 @@ Phases, each of which fails the run on any error:
    train step at each configuration, with the same tolerances (K5b exact,
    on inputs full of ties); two runs bitwise equal.  Library calls:
    ``aten.convolution_backward`` (dgrad or wgrad on the activated input)
-   and the ``F.max_pool3d`` backward.  In bf16 dgrad and wgrad run on the
-   tensor cores; at each of their shapes they are also held against the
-   bf16 CUDA-core instance (``tensor_cores=False``), which multiplies the
-   same operands: cosine >= 0.99999, dx / dw within 2^-7 * max|ref|, ds /
-   db within 1e-4 * max|ref|; the line has its time (``cuda_cores_ms``).
-   The backward lines time the kernels, both instances in turns, and the
-   library call on the device alone (``device_ms``: queued behind a long
-   matmul, so the launcher's host time, which exceeds the kernel's at the
-   2D-stage shapes, stays out); ``host_bound_ms`` is the launcher timed as
-   the other phases time theirs.
+   and the ``F.max_pool3d`` backward.  In bf16 the stats forward, dgrad
+   and wgrad run on the tensor cores; at each of their shapes they are
+   also held against the bf16 CUDA-core instance, as in phase 2: cosine
+   >= 0.99999 on every output, y / dx / dw within 2^-7 * max|ref|, ds / db
+   within 1e-4 * max|ref|, s1 / s2 at their tolerance against plain;
+   timed on the device alone as in phase 2.
 5. Train, end to end: one ``make_train_step`` (SGD lr 0.1, momentum 0.9,
    weight decay 1e-4, Mix(Dice + BCE)) from the same seeded weights and
    batch on the kernel path, on ``kernels=False`` and, as the reference,
@@ -80,7 +86,8 @@ Phases, each of which fails the run on any error:
    of the fused conv) against its plain version at every call shape of one
    member's bucketed forward, on inputs random everywhere, so the padding
    holds garbage that a leaking mask would read (the same conv without the
-   mask must differ), and K5f at the bucketed pool shapes; timings as in
+   mask must differ), two runs bitwise equal, in bf16 also against the
+   CUDA-core instance, and K5f at the bucketed pool shapes; timings as in
    phase 2, the library call being ``F.conv3d`` on the masked activated
    input.  (b) The 5-member ensemble on the padded batch, cropped to the
    true extent, against the same path on the unpadded batch, the kernel
@@ -110,7 +117,9 @@ Phases, each of which fails the run on any error:
    plain version's (cuDNN per op), the per-conv kernel path's (K1/K2/K7
    on the same block: ``fused_chain_per_conv``), the bound and the share
    of the kernel's work that its halos recompute.  (b) On the same inputs,
-   the kernel against the per-conv kernel path: fp32 max-abs-err <= 1e-5 *
+   the kernel against the per-conv kernel path, the model's (bf16 on the
+   tensor cores) and the CUDA-core one (``tensor_cores=False``, the
+   arithmetic K8 shares; its time too): fp32 max-abs-err <= 1e-5 *
    max|y|, bf16 cosine >= 0.9999 and norm ratio within 1%, and whether
    they are bit-equal.  (c) The 5-member ensemble at the crop shapes, bf16
    B=4 and fp32 B=1, under each fusion against the per-conv kernel path
@@ -143,8 +152,9 @@ Phases, each of which fails the run on any error:
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8; max-abs-err of its fp32 comparisons;
-   per-step times summed over the bf16 B=4 calls, for the backward also
-   the bf16 CUDA-core instance's (``cuda_cores_ms``); the data gradient of
+   per-step times summed over the bf16 B=4 calls, for the tensor-core
+   fused-conv kernels (forward and backward) also the bf16 CUDA-core
+   instance's (``cuda_cores_ms``); the data gradient of
    K10, off the path, with 0 launches and ``on_main_path`` false), the
    card line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -189,6 +199,7 @@ SERVE_IMAGES = 8
 SERVE_BATCH = 4
 SPACING = (0.12, 0.0039, 0.0117)   # mm per (D, H, W) voxel
 _FC = "multimodal_fusion_fpn_torch/csrc/fused_conv.cu"
+_FCM = "multimodal_fusion_fpn_torch/csrc/fused_conv_mma.cu"
 _FCB = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd.cu"
 _FCBM = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd_mma.cu"
 _POOL = "multimodal_fusion_fpn_torch/csrc/pool.cu"
@@ -199,18 +210,18 @@ _TPU_POOL = "multimodal_fusion_fpn_tpu/ops/pallas/pool.py"
 _TPU_BC = "multimodal_fusion_fpn_tpu/ops/pallas/banded_conv.py"
 # name -> (source, the TPU kernel it replaces, the step whose run counts)
 KERNELS = {
-    "fused_conv": (_FC, f"{_TPU_FC}:375", "ensemble"),
-    "fused_conv_ky3": (_FC, f"{_TPU_FC}:2580", "ensemble"),
+    "fused_conv": (_FCM, f"{_TPU_FC}:375", "ensemble"),
+    "fused_conv_ky3": (_FCM, f"{_TPU_FC}:2580", "ensemble"),
     "max_pool3d_cl": (_POOL, f"{_TPU_POOL}:117", "ensemble"),
-    "fused_conv_stats": (_FC, f"{_TPU_FC}:375", "train"),
-    "fused_conv_ky3_stats": (_FC, f"{_TPU_FC}:2580", "train"),
+    "fused_conv_stats": (_FCM, f"{_TPU_FC}:375", "train"),
+    "fused_conv_ky3_stats": (_FCM, f"{_TPU_FC}:2580", "train"),
     "fused_conv_dgrad": (_FCBM, f"{_TPU_FC}:2034", "train"),
     "fused_conv_wgrad": (_FCBM, f"{_TPU_FC}:1855", "train"),
     "fused_conv_ky3_dgrad": (_FCBM, f"{_TPU_FC}:2721", "train"),
     "fused_conv_ky3_wgrad": (_FCBM, f"{_TPU_FC}:2880", "train"),
     "max_pool3d_cl_bwd": (_POOL, f"{_TPU_POOL}:132", "train"),
-    "fused_conv_dyn": (_FC, f"{_TPU_FC}:445", "bucketed"),
-    "fused_conv_dyn_ky3": (_FC, f"{_TPU_FC}:2594", "bucketed"),
+    "fused_conv_dyn": (_FCM, f"{_TPU_FC}:445", "bucketed"),
+    "fused_conv_dyn_ky3": (_FCM, f"{_TPU_FC}:2594", "bucketed"),
     "fused_chain": (_FB, f"{_TPU_FC}:1445", "chain"),
     "fused_pair": (_FB, f"{_TPU_FC}:1294", "pair"),
     "fused_chain_dyn": (_FB, f"{_TPU_FC}:1445", "bucketed_chain"),
@@ -220,13 +231,23 @@ KERNELS = {
     "banded_conv_wgrad": (_BC, f"{_TPU_BC}:66", "train"),
     "banded_conv_dgrad": (_BC, f"{_TPU_BC}:66", "train"),
 }
-# the backward kernels: bf16 (the main path's) on the tensor cores, fp32 on
-# the CUDA cores; the TPU kernels each one stands for
+# the fused-conv kernels: bf16 (the main path's) on the tensor cores, fp32
+# on the CUDA cores; the TPU kernels each one stands for
+FWD_INSTANCES = {"bf16": _FCM, "fp32": _FC}
 BWD_INSTANCES = {"bf16": _FCBM, "fp32": _FCB}
-BWD_ROWS = {"fused_conv_dgrad": "K3 dx, ds, db (and K9 _rf_dx_kernel)",
-            "fused_conv_wgrad": "K6 / K3 band cotangent (and K9)",
-            "fused_conv_ky3_dgrad": "K4 dx, ds, db",
-            "fused_conv_ky3_wgrad": "K6 _yck_dband_kernel / K4 band"}
+# instances of the bf16 forward kernel: 5 tap sets x 3 channel blocks (16,
+# 32, 64 output channels) x with and without stats
+FWD_MMA_INSTANCES = 30
+TC_ROWS = {"fused_conv": "K1 (and K9 _rf_kernel)",
+           "fused_conv_ky3": "K2",
+           "fused_conv_stats": "K1 with_stats (and K9)",
+           "fused_conv_ky3_stats": "K2 with_stats",
+           "fused_conv_dyn": "K7 (K1 with_dyn)",
+           "fused_conv_dyn_ky3": "K7 (K2 with_dyn)",
+           "fused_conv_dgrad": "K3 dx, ds, db (and K9 _rf_dx_kernel)",
+           "fused_conv_wgrad": "K6 / K3 band cotangent (and K9)",
+           "fused_conv_ky3_dgrad": "K4 dx, ds, db",
+           "fused_conv_ky3_wgrad": "K6 _yck_dband_kernel / K4 band"}
 # checked at the train shapes, but not launched by the train step: the
 # data gradient of the narrow convs, whose input is the data
 OFF_PATH = ("banded_conv_dgrad",)
@@ -370,79 +391,148 @@ def cuda_core_ms(nbytes, flops):
     return max(nbytes / PEAK_BYTES_PER_S, flops / CUDA_CORE_FLOPS) * 1e3
 
 
-def check_conv_shape(key, n_calls, gen):
-    """Kernel vs plain (vs F.conv3d) at one recorded fused_conv call."""
+def same_operands(pairs):
+    """(ok, per-name stats): a tensor-core kernel against its bf16
+    CUDA-core instance, which multiplies the same bf16 operands and sums in
+    another order: cosine >= 0.99999 on every output; y / dx / dw within
+    2^-7 * max|ref|, ds / db within 1e-4 * max|ref|, s1 / s2 at their
+    tolerance against plain as well (norm ratio within 1%)."""
+    import torch
+    ok, stats = True, {}
+    for name, got, ref in pairs:
+        got, ref = got.double(), ref.double()
+        cos = torch.nn.functional.cosine_similarity(
+            got.flatten(), ref.flatten(), dim=0).item()
+        err, peak = (got - ref).abs().max().item(), ref.abs().max().item()
+        ratio = (got.norm() / ref.norm()).item()
+        if name in ("s1", "s2"):
+            o = cos >= 0.99999 and abs(ratio - 1) <= 0.01
+        else:
+            tol = 2 ** -7 if name in ("y", "dx", "dw") else 1e-4
+            o = cos >= 0.99999 and err <= tol * peak
+        ok &= o
+        stats[name] = dict(cos=cos, max_err=err, max_ref=peak,
+                           norm_ratio=ratio, ok=o)
+    return ok, stats
+
+
+def instance_record(run, names, got, dt, source):
+    """(ok, record) at one kernel call: ``run(tc)`` launches the kernel
+    (``tc`` False: its bf16 CUDA-core instance) and returns its outputs.
+    In bf16 (the tensor cores) the outputs ``got`` are held against the
+    CUDA-core instance's (``same_operands``).  Times on the device alone
+    (``device_ms``: queued behind a long matmul, so the launcher's host
+    time, which exceeds the kernel's at the 2D-stage shapes, stays out),
+    the two instances in turns; ``host_bound_ms`` is the launcher timed as
+    ``time_ms`` times the plain versions."""
+    import torch
+    tc = dt == torch.bfloat16
+    ok, rec = True, {}
+    if tc:
+        ok, st = same_operands(
+            [(n, a, c) for n, a, c in zip(names, got, run(False))
+             if a is not None])
+        rec = dict(vs_cuda_cores_ok=ok, vs_cuda_cores=st)
+    times = {True: [], False: []}
+    for inst in ((True, False, False, True) if tc else (True,)):
+        times[inst].append(device_ms(lambda: run(inst)))
+    rec.update(tensor_cores=tc, source=source["bf16" if tc else "fp32"],
+               kernel_ms=min(times[True]),
+               cuda_cores_ms=min(times[False]) if tc else None,
+               host_bound_ms=time_ms(lambda: run(True)))
+    return ok, rec
+
+
+def conv_library(x, s, b, w, relu, sz, ext=None):
+    """One cuDNN call computing the conv on the activated (and, with
+    ``ext``, masked) input: F.conv3d, timed on the device alone."""
     import torch.nn.functional as F
+    from multimodal_fusion_fpn_torch.ops import fused_conv as fc
+    from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
+    t = fc.affine_relu(x, s, b, relu)
+    if ext is not None:
+        t = mask_valid(t, dict(zip((1, 2, 3), ext)))
+    t = t.permute(0, 4, 1, 2, 3)
+    wl = w.permute(4, 3, 0, 1, 2).contiguous()
+    pad = tuple(k // 2 for k in w.shape[:3])
+    return device_ms(lambda: F.conv3d(t, wl, stride=(1, 1, sz), padding=pad))
+
+
+def check_conv_shape(key, n_calls, gen):
+    """Kernel vs plain (vs F.conv3d) at one recorded fused_conv call; two
+    runs bitwise equal; in bf16 also vs the CUDA-core instance."""
+    import torch
     from multimodal_fusion_fpn_torch.ops import fused_conv as fc
     name, xs, ws, sz, relu, affine, _, dts = key[:8]
     dt = _dtype(dts)
     x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
+    run = lambda tc=True: (fc._launch_forward(x, s, b, w, relu, sz, False,
+                                              tensor_cores=tc),)
     y = fc.fused_conv(x, s, b, w, relu, sz)
-    ref = fc.fused_conv_plain(x, s, b, w, relu, sz)
-    ok, stats = compare(y, ref, dt)
-    t = fc.affine_relu(x, s, b, relu).permute(0, 4, 1, 2, 3)
-    wl = w.permute(4, 3, 0, 1, 2).contiguous()
-    pad = tuple(k // 2 for k in ws[:3])
+    ok, stats = compare(y, fc.fused_conv_plain(x, s, b, w, relu, sz), dt)
+    same = torch.equal(y, run()[0])
+    ok_c, rec = instance_record(run, ("y",), (y,), dt, FWD_INSTANCES)
     nbytes, flops, _ = conv_cost(xs, ws, sz, x.element_size(), affine)
     b_ms, b_by = bound(nbytes, flops, dts)
     return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
                 relu=relu, affine=affine, calls_per_step=n_calls,
                 flop=flops, bytes=nbytes,
-                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
-                kernel_ms=time_ms(lambda: fc.fused_conv(x, s, b, w, relu, sz)),
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops), **rec,
                 plain_ms=time_ms(
                     lambda: fc.fused_conv_plain(x, s, b, w, relu, sz)),
-                library_ms=time_ms(lambda: F.conv3d(
-                    t, wl, stride=(1, 1, sz), padding=pad)),
-                bound_ms=b_ms, bound_by=b_by, ok=ok, **stats)
+                library_ms=conv_library(x, s, b, w, relu, sz),
+                bound_ms=b_ms, bound_by=b_by, ok=ok and same and ok_c,
+                bitwise_repeatable=same, **stats)
 
 
 def check_dyn_shape(key, n_calls, gen):
-    """K7 vs its plain version at one recorded extents call.  The input is
+    """K7 vs its plain version at one recorded extents call; two runs
+    bitwise equal; in bf16 also vs the CUDA-core instance.  The input is
     random everywhere, so the padding beyond the extents holds garbage: the
     same conv without the mask must differ from the plain version, unless
     the extents cover the whole input."""
-    import torch.nn.functional as F
+    import torch
     from multimodal_fusion_fpn_torch.ops import fused_conv as fc
-    from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
     name, xs, ws, sz, relu, affine, _, dts, ext = key
     dt = _dtype(dts)
     x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
-    run = lambda: fc.fused_conv(x, s, b, w, relu, sz, dyn_extents=ext)
+    run = lambda tc=True: (fc._launch_forward(x, s, b, w, relu, sz, False,
+                                              ext, tensor_cores=tc),)
     plain = lambda: fc.fused_conv_dyn_plain(x, s, b, w, relu, sz, ext)
-    ok, stats = compare(run(), plain(), dt)
+    y = fc.fused_conv(x, s, b, w, relu, sz, dyn_extents=ext)
+    ok, stats = compare(y, plain(), dt)
+    same = torch.equal(y, run()[0])
+    ok_c, rec = instance_record(run, ("y",), (y,), dt, FWD_INSTANCES)
     whole = tuple(ext) == tuple(xs[1:4])
     unmasked_ok = compare(fc.fused_conv_plain(x, s, b, w, relu, sz),
                           plain(), dt)[0]
     garbage_shows = whole or not unmasked_ok
-    t = mask_valid(fc.affine_relu(x, s, b, relu),
-                   dict(zip((1, 2, 3), ext))).permute(0, 4, 1, 2, 3)
-    wl = w.permute(4, 3, 0, 1, 2).contiguous()
-    pad = tuple(k // 2 for k in ws[:3])
     nbytes, flops, _ = conv_cost(xs, ws, sz, x.element_size(), affine)
     b_ms, b_by = bound(nbytes, flops, dts)
     return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
                 relu=relu, affine=affine, extents=list(ext),
                 calls_per_step=n_calls, flop=flops, bytes=nbytes,
-                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
-                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
-                library_ms=time_ms(lambda: F.conv3d(
-                    t, wl, stride=(1, 1, sz), padding=pad)),
-                bound_ms=b_ms, bound_by=b_by, ok=ok and garbage_shows,
-                garbage_shows=garbage_shows, **stats)
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops), **rec,
+                plain_ms=time_ms(plain),
+                library_ms=conv_library(x, s, b, w, relu, sz, ext),
+                bound_ms=b_ms, bound_by=b_by,
+                ok=ok and same and ok_c and garbage_shows,
+                bitwise_repeatable=same, garbage_shows=garbage_shows,
+                **stats)
 
 
 def check_stats_shape(key, n_calls, gen):
     """The stats instance: (y, s1, s2) vs plain; s1/s2 also vs the sums
-    of the kernel's own y; two runs bitwise equal."""
+    of the kernel's own y; two runs bitwise equal; in bf16 also vs the
+    CUDA-core instance."""
     import torch
-    import torch.nn.functional as F
     from multimodal_fusion_fpn_torch.ops import fused_conv as fc
     name, xs, ws, sz, relu, affine, _, dts = key[:8]
     dt = _dtype(dts)
     x, s, b, w = conv_inputs(xs, ws, affine, dt, gen)
-    run = lambda: fc.fused_conv(x, s, b, w, relu, sz, with_stats=True)
-    y, s1, s2 = run()
+    run = lambda tc=True: fc._launch_forward(x, s, b, w, relu, sz, True,
+                                             tensor_cores=tc)
+    y, s1, s2 = fc.fused_conv(x, s, b, w, relu, sz, with_stats=True)
     again = run()
     plain = lambda: fc.fused_conv_plain(x, s, b, w, relu, sz,
                                         with_stats=True)
@@ -453,40 +543,20 @@ def check_stats_shape(key, n_calls, gen):
     o2, st2, _ = compare_all((("s1_own", s1, k1), ("s2_own", s2, k2)),
                              torch.float32)
     same = all(torch.equal(a, c) for a, c in zip((y, s1, s2), again))
-    t = fc.affine_relu(x, s, b, relu).permute(0, 4, 1, 2, 3)
-    wl = w.permute(4, 3, 0, 1, 2).contiguous()
-    pad = tuple(k // 2 for k in ws[:3])
+    ok_c, rec = instance_record(run, ("y", "s1", "s2"), (y, s1, s2), dt,
+                                FWD_INSTANCES)
     nbytes, flops, n_out = conv_cost(xs, ws, sz, x.element_size(), affine)
     flops += 3.0 * n_out
     b_ms, b_by = bound(nbytes, flops, dts)
     return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
                 relu=relu, affine=affine, calls_per_step=n_calls,
                 flop=flops, bytes=nbytes,
-                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
-                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
-                library_ms=time_ms(lambda: F.conv3d(
-                    t, wl, stride=(1, 1, sz), padding=pad)),
-                bound_ms=b_ms, bound_by=b_by, ok=o1 and o2 and same,
-                bitwise_repeatable=same, max_err=err, **st1, **st2)
-
-
-def same_operands(pairs):
-    """(ok, per-name stats): the tensor-core backward against the bf16
-    CUDA-core instance, which multiplies the same bf16 operands and sums in
-    another order: cosine >= 0.99999, dx / dw within 2^-7 * max|ref|, ds /
-    db within 1e-4 * max|ref|."""
-    import torch
-    ok, stats = True, {}
-    for name, got, ref in pairs:
-        got, ref = got.double(), ref.double()
-        cos = torch.nn.functional.cosine_similarity(
-            got.flatten(), ref.flatten(), dim=0).item()
-        err, peak = (got - ref).abs().max().item(), ref.abs().max().item()
-        tol = 2 ** -7 if name in ("dx", "dw") else 1e-4
-        o = cos >= 0.99999 and err <= tol * peak
-        ok &= o
-        stats[name] = dict(cos=cos, max_err=err, max_ref=peak, ok=o)
-    return ok, stats
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops), **rec,
+                plain_ms=time_ms(plain),
+                library_ms=conv_library(x, s, b, w, relu, sz),
+                bound_ms=b_ms, bound_by=b_by,
+                ok=o1 and o2 and same and ok_c, bitwise_repeatable=same,
+                max_err=err, **st1, **st2)
 
 
 def check_bwd_shape(key, n_calls, gen):
@@ -525,14 +595,7 @@ def check_bwd_shape(key, n_calls, gen):
     ok, st, err = compare_all(pairs, dt)
     same = all(torch.equal(a, c) for a, c in zip(got, again)
                if a is not None)
-    tc = dt == torch.bfloat16
-    rec = {}
-    if tc:
-        cores = run(False)
-        ok_c, st_c = same_operands(
-            [(n, a, c) for n, a, c in zip(names, got, cores) if a is not None])
-        rec = dict(vs_cuda_cores_ok=ok_c, vs_cuda_cores=st_c)
-        ok &= ok_c
+    ok_c, rec = instance_record(run, names, got, dt, BWD_INSTANCES)
     # library: cuDNN's backward of the plain conv on the activated input
     t = fc.affine_relu(x, s, b, relu).permute(0, 4, 1, 2, 3)
     wl = w.permute(4, 3, 0, 1, 2).contiguous()
@@ -550,23 +613,13 @@ def check_bwd_shape(key, n_calls, gen):
     if affine:
         nbytes += 2 * xs[-1] * esize + (2 * xs[-1] * 4 if dgrad else 0)
     b_ms, b_by = bound(nbytes, flops, dts)
-    # device times (device_ms), the tensor-core and CUDA-core instances in
-    # turns; host_bound_ms: the launcher timed as time_ms times the others
-    times = {True: [], False: []}
-    for inst in ((True, False, False, True) if tc else (True,)):
-        times[inst].append(device_ms(lambda: run(inst)))
     return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws), stride_z=sz,
                 relu=relu, affine=affine, stats_cotangent=stats,
                 calls_per_step=n_calls, flop=flops, bytes=nbytes,
-                tensor_cores=tc,
-                source=BWD_INSTANCES["bf16" if tc else "fp32"],
-                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
-                kernel_ms=min(times[True]),
-                cuda_cores_ms=min(times[False]) if tc else None,
-                host_bound_ms=time_ms(run),
+                bound_cuda_cores_ms=cuda_core_ms(nbytes, flops), **rec,
                 plain_ms=time_ms(plain), library_ms=device_ms(lib),
-                bound_ms=b_ms, bound_by=b_by, ok=ok and same,
-                bitwise_repeatable=same, max_err=err, outputs=st, **rec)
+                bound_ms=b_ms, bound_by=b_by, ok=ok and same and ok_c,
+                bitwise_repeatable=same, max_err=err, outputs=st)
 
 
 def check_pool_shape(key, n_calls, gen):
@@ -700,9 +753,10 @@ def check_banded_shape(key, n_calls, gen):
 
 
 def hmma_counts(lib):
-    """{kernel: HMMA instructions in its SASS} for the dgrad / wgrad
-    kernels of ``lib`` (``cuobjdump --dump-sass``, from the toolkit beside
-    nvcc), names demangled to their template arguments."""
+    """{kernel: HMMA instructions in its SASS} for the tensor-core kernels
+    of ``lib`` (the bf16 forward, dgrad and wgrad; ``cuobjdump
+    --dump-sass``, from the toolkit beside nvcc), names demangled to their
+    template arguments."""
     import os
     import re
     from multimodal_fusion_fpn_torch.ops import _build
@@ -713,10 +767,11 @@ def hmma_counts(lib):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            m2 = re.search(r"([dw]grad_mma_kernel)ILi(\d+)ELi(\d+)ELi(\d+)"
-                           r"ELi(\d+)ELi(\d+)E", m.group(1))
-            name = (None if m2 is None else
-                    f"{m2.group(1)}<{','.join(m2.groups()[1:])}>")
+            m2 = re.search(r"((?:fused_conv|dgrad|wgrad)_mma_kernel)I"
+                           r"((?:L[ib]\d+E)+)", m.group(1))
+            args = [] if m2 is None else re.findall(r"L[ib](\d+)E",
+                                                    m2.group(2))
+            name = None if m2 is None else f"{m2.group(1)}<{','.join(args)}>"
             if name is not None:
                 counts[name] = 0
         elif name is not None and re.search(r"\bHMMA\b", line):
@@ -1009,7 +1064,9 @@ def recompute_share(xs, wshapes, tile):
 
 
 def check_block_shape(key, n_calls, gen):
-    """(a) and (b) of phase 7 at one recorded chain or pair call."""
+    """(a) and (b) of phase 7 at one recorded chain or pair call: (b)
+    against the per-conv kernel path on the tensor cores (bf16; the
+    model's) and on the CUDA cores (K8's own arithmetic)."""
     import torch
     from multimodal_fusion_fpn_torch.ops import fused_block as fb
     name, xs, wshapes, final, _, _, dts, ext = key
@@ -1024,11 +1081,13 @@ def check_block_shape(key, n_calls, gen):
         fns = (fb.fused_chain, fb.fused_chain_plain, fb.fused_chain_per_conv)
     run, plain, per_conv = (lambda f=f: f(*args, dyn_extents=ext)
                             for f in fns)
+    per_conv_cc = lambda: fns[2](*args, dyn_extents=ext, tensor_cores=False)
     y = run()
     ok, stats = compare(y, plain(), dt)
     same = torch.equal(y, run())
-    pc = per_conv()
+    pc, pcc = per_conv(), per_conv_cc()
     ok_pc, st_pc = compare_bucketed(y, pc, dt)
+    ok_pcc, st_pcc = compare_bucketed(y, pcc, dt)
     whole = ext is None or tuple(ext) == tuple(xs[1:4])
     garbage_shows = whole or not compare(fns[1](*args), plain(), dt)[0]
     nbytes, flops = block_cost(xs, wshapes, final, x.element_size())
@@ -1044,12 +1103,16 @@ def check_block_shape(key, n_calls, gen):
                 blocks=tile[3],
                 recompute_share=recompute_share(xs, wshapes, tile),
                 kernel_ms=time_ms(run), plain_ms=time_ms(plain),
-                per_conv_ms=time_ms(per_conv), library_ms=None,
+                per_conv_ms=time_ms(per_conv),
+                per_conv_cuda_cores_ms=time_ms(per_conv_cc), library_ms=None,
                 bound_ms=b_ms, bound_by=b_by,
-                ok=ok and same and ok_pc and garbage_shows,
+                ok=ok and same and ok_pc and ok_pcc and garbage_shows,
                 bitwise_repeatable=same, garbage_shows=garbage_shows,
                 vs_per_conv=dict(st_pc, ok=ok_pc,
-                                 bit_equal=torch.equal(y, pc)), **stats)
+                                 bit_equal=torch.equal(y, pc)),
+                vs_per_conv_cuda_cores=dict(st_pcc, ok=ok_pcc,
+                                            bit_equal=torch.equal(y, pcc)),
+                **stats)
 
 
 def timed_named(run, paths, reps=3):
@@ -1553,20 +1616,25 @@ def main() -> int:
     t_start = time.time()
 
     # --- 1. build ---------------------------------------------------------
-    libs = ["fused_conv", "fused_conv_bwd", "fused_conv_bwd_mma", "pool",
-            "fused_block", "banded_conv"]
+    libs = ["fused_conv", "fused_conv_mma", "fused_conv_bwd",
+            "fused_conv_bwd_mma", "pool", "fused_block", "banded_conv"]
     _build.build(libs)
     for name in libs:
         _build.load(name)
     card = card_line()
     print(card, flush=True)
-    hmma = hmma_counts(_build.library_path("fused_conv_bwd_mma"))
+    hmma = {lib: hmma_counts(_build.library_path(lib))
+            for lib in ("fused_conv_mma", "fused_conv_bwd_mma")}
     emit({"phase": "build", "seconds": time.time() - t_start,
           "libraries": [_build.library_path(n) for n in libs],
-          "hmma_per_bf16_backward_kernel": hmma})
-    no_tc = [k for k, n in hmma.items() if n == 0]
-    if not hmma or no_tc:
-        failures.append(f"bf16 backward kernels without HMMA: {no_tc or hmma}")
+          "hmma_per_bf16_forward_kernel": hmma["fused_conv_mma"],
+          "hmma_per_bf16_backward_kernel": hmma["fused_conv_bwd_mma"]})
+    for lib, n_inst in (("fused_conv_mma", FWD_MMA_INSTANCES),
+                        ("fused_conv_bwd_mma", None)):
+        no_tc = [k for k, n in hmma[lib].items() if n == 0]
+        if not hmma[lib] or no_tc or n_inst not in (None, len(hmma[lib])):
+            failures.append(f"{lib}: tensor-core kernels without HMMA, or "
+                            f"not {n_inst} of them: {no_tc or hmma[lib]}")
 
     cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
                           fusion_modality="slo", number_of_outputs=1)
@@ -1991,9 +2059,13 @@ def main() -> int:
                            else per_step(main, "library_ms"))})
         if main and "per_conv_ms" in main[0]:
             summary[-1]["per_conv_ms"] = per_step(main, "per_conv_ms")
-        if name in BWD_ROWS:
+            summary[-1]["per_conv_cuda_cores_ms"] = per_step(
+                main, "per_conv_cuda_cores_ms")
+        if name in TC_ROWS:
             summary[-1].update(
-                tpu_rows=BWD_ROWS[name], instances=BWD_INSTANCES,
+                tpu_rows=TC_ROWS[name],
+                instances=(BWD_INSTANCES if name.endswith("grad")
+                           else FWD_INSTANCES),
                 cuda_cores_ms=per_step(main, "cuda_cores_ms"))
         if name in OFF_PATH:
             summary[-1]["on_main_path"] = False

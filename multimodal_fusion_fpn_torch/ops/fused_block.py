@@ -52,6 +52,7 @@ plain version and counts nothing.
 
 import collections
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -77,8 +78,12 @@ def _conv_plain(x, s, b, w, relu, ext):
     return _fc.fused_conv_dyn_plain(x, s, b, w, relu, 1, ext)
 
 
-def _conv_per_conv(x, s, b, w, relu, ext):
-    return _fc.fused_conv(x, s, b, w, relu, dyn_extents=ext)
+def _conv_per_conv(x, s, b, w, relu, ext, tensor_cores=True):
+    if tensor_cores:
+        return _fc.fused_conv(x, s, b, w, relu, dyn_extents=ext)
+    _no_grad("per-conv path (tensor_cores=False)", [x, s, b, w])
+    return _fc._forward(x, s, b, w, relu, 1, False,
+                        _fc._check_extents(x, ext), tensor_cores=False)
 
 
 def _chain_of(conv, x, s_in, b_in, relu0, convs, final, ds, ext):
@@ -115,13 +120,16 @@ def fused_chain_per_conv(x: torch.Tensor, s_in: Optional[torch.Tensor],
                          b_in: Optional[torch.Tensor], relu0: bool,
                          convs: Sequence[Conv], final: str,
                          ds: Optional[Conv] = None,
-                         dyn_extents: Optional[Sequence[int]] = None
-                         ) -> torch.Tensor:
+                         dyn_extents: Optional[Sequence[int]] = None,
+                         tensor_cores: bool = True) -> torch.Tensor:
     """The same composition through the per-conv kernel
     (``fused_conv``: K1, K2 and K7 on a CUDA tensor), which the model runs
-    without ``block_fusion``; the yardstick of the whole-block kernel."""
-    return _chain_of(_conv_per_conv, x, s_in, b_in, relu0, convs, final,
-                     ds, dyn_extents)
+    without ``block_fusion``; the yardstick of the whole-block kernel.
+    ``tensor_cores=False`` takes the bf16 CUDA-core per-conv kernel, to
+    which K8 is bit-equal: only for comparing the two on the card."""
+    conv = functools.partial(_conv_per_conv, tensor_cores=tensor_cores)
+    return _chain_of(conv, x, s_in, b_in, relu0, convs, final, ds,
+                     dyn_extents)
 
 
 def fused_pair_plain(x: torch.Tensor, s0: Optional[torch.Tensor],
@@ -140,12 +148,13 @@ def fused_pair_per_conv(x: torch.Tensor, s0: Optional[torch.Tensor],
                         b0: Optional[torch.Tensor], w0: torch.Tensor,
                         s_mid: torch.Tensor, b_mid: torch.Tensor,
                         w1: torch.Tensor, relu0: bool,
-                        dyn_extents: Optional[Sequence[int]] = None
-                        ) -> torch.Tensor:
+                        dyn_extents: Optional[Sequence[int]] = None,
+                        tensor_cores: bool = True) -> torch.Tensor:
     """The pair through the per-conv kernel (as
     :func:`fused_chain_per_conv`)."""
-    y = _conv_per_conv(x, s0, b0, w0, relu0, dyn_extents)
-    return _conv_per_conv(y, s_mid, b_mid, w1, True, dyn_extents)
+    y = _conv_per_conv(x, s0, b0, w0, relu0, dyn_extents, tensor_cores)
+    return _conv_per_conv(y, s_mid, b_mid, w1, True, dyn_extents,
+                          tensor_cores)
 
 
 def _no_grad(who, tensors):

@@ -37,7 +37,14 @@ Source note.  The CUDA kernels replace the TPU kernels of
   ``"fused_conv_ky3"`` for kY == 3, ``"fused_conv_stats"`` /
   ``"fused_conv_ky3_stats"`` for the stats instances and
   ``"fused_conv_dyn"`` / ``"fused_conv_dyn_ky3"`` for the extents
-  instances.
+  instances.  The model's paths run its fp32 instances.
+* ``csrc/fused_conv_mma.cu``: the bf16 instances of the same forward (K1,
+  K2, K7, ± stats, and the function of the roll-free ``_rf_kernel``, K9's
+  forward), on the tensor cores (``mma.sync``), counted under the same
+  names.  The bf16 CUDA-core instances of ``fused_conv.cu`` stay reachable
+  through the private ``tensor_cores=False`` of :func:`_launch_forward`,
+  for comparing the two on the card (and for K8's bit-equality to the
+  CUDA-core per-conv path, ``fused_block``).
 * ``csrc/fused_conv_bwd.cu``: ``_dx_kernel`` (K3, ``_dx_pallas(...,
   want_band=True)``, the merged backward) and ``_yck_dx_kernel`` (K4,
   ``_dx_pallas_yck``), as a dgrad kernel (dx, ds, db) and a wgrad kernel
@@ -58,9 +65,9 @@ The TPU kernel's second input (``n_in=2``) is unused on every model path
 and is left out; so is its ``preferred_element_type`` (the models always
 emit the compute dtype).  At the stage 1-3 shapes a call is about 37 GFLOP
 against 0.5 GB of bf16 traffic at B=4: bound by the FMA rate on the fp32
-CUDA cores, by bytes on the tensor cores.  The forward kernels and the
-fp32 backward run on the CUDA cores with their input tiles in shared
-memory (see the .cu headers).
+CUDA cores, by bytes on the tensor cores.  bf16 runs on the tensor cores,
+fp32 on the CUDA cores, with the input tiles in shared memory (see the .cu
+headers).
 
 bf16: the prologue rounds like the JAX bf16 prologue (``x*s`` and then
 ``+b`` each rounded to bf16), products accumulate in fp32 and each output
@@ -315,11 +322,17 @@ def _count(name, x, w, stride_z, relu, scale, stats, ext=None):
            scale is not None, bool(stats), str(x.dtype), ext)] += 1
 
 
-def _launch_forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None):
+def _launch_forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None,
+                    tensor_cores=True):
     """The forward kernel (and its stats reduction) on CUDA tensors; with
-    ``ext`` (three ints) the extents instance."""
+    ``ext`` (three ints) the extents instance.  bf16 on the tensor cores
+    (``csrc/fused_conv_mma.cu``), fp32 on the CUDA cores
+    (``csrc/fused_conv.cu``).  ``tensor_cores=False`` takes the bf16
+    CUDA-core instance: only for comparing the two on the card; the model
+    never passes it."""
     B, Y, X, Z, ci = x.shape
     kY, kX, kz, _, co = w.shape
+    mma = tensor_cores and x.dtype == torch.bfloat16
     out = torch.empty(_out_shape(x, w, stride_z), dtype=x.dtype,
                       device=x.device)
     Zo = out.shape[3]
@@ -327,15 +340,27 @@ def _launch_forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None):
     if with_stats:
         s1 = torch.empty(co, dtype=torch.float32, device=x.device)
         s2 = torch.empty_like(s1)
-        work = _work(_fn("fused_conv", "mmf_fused_conv_work_bytes",
-                         [_INT] * 5, _SIZE)(B, Y, X, Zo, co), x.device)
+        if mma:
+            nbytes = _fn("fused_conv_mma", "mmf_fused_conv_mma_work_bytes",
+                         [_INT] * 11, _SIZE)(kY, kX, kz, stride_z, B, Y, X,
+                                             Z, Zo, ci, co)
+        else:
+            nbytes = _fn("fused_conv", "mmf_fused_conv_work_bytes",
+                         [_INT] * 5, _SIZE)(B, Y, X, Zo, co)
+        work = _work(nbytes, x.device)
     dyn = None if ext is None else (ctypes.c_int * 3)(*ext)
-    fn = _fn("fused_conv", "mmf_fused_conv",
-             [_INT] * 5 + [_PTR] * 9 + [_INT] * 8 + [_PTR])
-    rc = fn(_DTYPES[x.dtype], kY, kX, kz, stride_z, x.data_ptr(), _ptr(scale),
-            _ptr(bias), w.data_ptr(), out.data_ptr(), _ptr(s1), _ptr(s2),
-            _ptr(work), None if dyn is None else ctypes.addressof(dyn), B, Y,
-            X, Z, Zo, ci, co, int(relu), _stream(x))
+    args = (x.data_ptr(), _ptr(scale), _ptr(bias), w.data_ptr(),
+            out.data_ptr(), _ptr(s1), _ptr(s2), _ptr(work),
+            None if dyn is None else ctypes.addressof(dyn), B, Y, X, Z, Zo,
+            ci, co, int(relu), _stream(x))
+    if mma:
+        fn = _fn("fused_conv_mma", "mmf_fused_conv_mma",
+                 [_INT] * 4 + [_PTR] * 9 + [_INT] * 8 + [_PTR])
+        rc = fn(kY, kX, kz, stride_z, *args)
+    else:
+        fn = _fn("fused_conv", "mmf_fused_conv",
+                 [_INT] * 5 + [_PTR] * 9 + [_INT] * 8 + [_PTR])
+        rc = fn(_DTYPES[x.dtype], kY, kX, kz, stride_z, *args)
     if rc != 0:
         raise RuntimeError(f"fused_conv: kernel launch failed, CUDA error {rc}")
     if ext is not None:
@@ -431,7 +456,8 @@ def _device(x, who):
     return x.device.type
 
 
-def _forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None):
+def _forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None,
+             tensor_cores=True):
     if _device(x, "fused_conv") == "cpu":
         if ext is not None:
             return fused_conv_dyn_plain(x, scale, bias, w, relu, stride_z,
@@ -439,7 +465,7 @@ def _forward(x, scale, bias, w, relu, stride_z, with_stats, ext=None):
         return fused_conv_plain(x, scale, bias, w, relu, stride_z, with_stats)
     _check(x, scale, bias, w, stride_z)
     return _launch_forward(x, scale, bias, w, relu, stride_z, with_stats,
-                           ext)
+                           ext, tensor_cores)
 
 
 def fused_conv_bwd(x: torch.Tensor, scale: Optional[torch.Tensor],

@@ -1,19 +1,18 @@
-"""Time two builds of the forward conv kernel (``csrc/fused_conv.cu``)
-against each other at the eval call shapes of one FPNHybridFusion member,
-within one process on one GPU.
+"""Time two builds of the bf16 forward conv kernel
+(``csrc/fused_conv_mma.cu``, the tensor cores) against each other at the
+eval call shapes of one FPNHybridFusion member, within one process on one
+GPU.
 
     python -m multimodal_fusion_fpn_torch.tools.forward_ab --other DIR
 
-``DIR`` holds the other version's ``fused_conv.cu`` (e.g. an older
-commit's ``multimodal_fusion_fpn_torch/csrc``, unpacked with ``git
-archive``).  Both are compiled with the package's nvcc flags; the other
-version may have an older C interface, without the stats arguments or
-without the extents argument.  At
-every bf16 B=4 eval shape (ini widths, crop shapes) the script times the
-stats-free instance of each build in the order other, this, this, other
-(CUDA events, the best of each), checks that the two outputs are bitwise
-equal, and prints one JSON line per shape, one line of totals per
-5-member ensemble step, and the register, stack and spill counts that
+``DIR`` holds the other version's ``fused_conv_mma.cu`` and the headers it
+includes (e.g. another commit's ``multimodal_fusion_fpn_torch/csrc``,
+unpacked with ``git archive``).  Both are compiled with the package's nvcc
+flags.  At every bf16 B=4 eval shape (ini widths, crop shapes) the script
+times the stats-free instance of each build in the order other, this,
+this, other (CUDA events, the best of each), checks that the two outputs
+are bitwise equal, and prints one JSON line per shape, one line of totals
+per 5-member ensemble step, and the register, stack and spill counts that
 ``cuobjdump -res-usage`` reports for each build's kernels (and for this
 tree's backward kernels).
 """
@@ -37,42 +36,31 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 def compile_lib(src_dir: str, tag: str) -> str:
     out = os.path.join(os.path.dirname(_build.BUILD_DIR), "ab",
-                       f"fused_conv-{tag}.so")
+                       f"fused_conv_mma-{tag}.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", src_dir, "-o",
-                    out, os.path.join(src_dir, "fused_conv.cu")], check=True)
+                    out, os.path.join(src_dir, "fused_conv_mma.cu")],
+                   check=True)
     return out
 
 
-def entry(path: str, n_extra: int):
-    """``run(x, s, b, w, out, relu, sz)`` for the library at ``path``, whose
-    ``mmf_fused_conv`` takes ``n_extra`` pointers after ``out`` (0; 3 for
-    the stats; 4 for the stats and the extents), all passed as NULL."""
-    fn = ctypes.CDLL(path).mmf_fused_conv
-    fn.argtypes = [_INT] * 5 + [_PTR] * (5 + n_extra) + [_INT] * 8 + [_PTR]
+def entry(path: str):
+    """``run(x, s, b, w, out, relu, sz)`` for the library at ``path``: its
+    ``mmf_fused_conv_mma`` with the stats and extents pointers NULL."""
+    fn = ctypes.CDLL(path).mmf_fused_conv_mma
+    fn.argtypes = [_INT] * 4 + [_PTR] * 9 + [_INT] * 8 + [_PTR]
     fn.restype = _INT
-    stats = (None,) * n_extra
 
     def run(x, s, b, w, out, relu, sz):
         B, Y, X, Z, ci = x.shape
         kY, kX, kz, _, co = w.shape
-        rc = fn(1, kY, kX, kz, sz, x.data_ptr(), fc._ptr(s), fc._ptr(b),
-                w.data_ptr(), out.data_ptr(), *stats, B, Y, X, Z,
-                out.shape[3], ci, co, int(relu),
+        rc = fn(kY, kX, kz, sz, x.data_ptr(), fc._ptr(s), fc._ptr(b),
+                w.data_ptr(), out.data_ptr(), None, None, None, None,
+                B, Y, X, Z, out.shape[3], ci, co, int(relu),
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{path}: launch failed, CUDA error {rc}")
     return run
-
-
-def extra_pointers(src_dir: str) -> int:
-    """How many pointers the source's ``mmf_fused_conv`` takes after
-    ``out`` (see :func:`entry`)."""
-    with open(os.path.join(src_dir, "fused_conv.cu")) as f:
-        src = f.read()
-    if "const int* dyn" in src:
-        return 4
-    return 3 if "mmf_fused_conv_work_bytes" in src else 0
 
 
 def time_ms(fn, reps=20):
@@ -125,15 +113,15 @@ def res_usage(path: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
-                    help="directory with the other version's fused_conv.cu")
+                    help="directory with the other version's "
+                         "fused_conv_mma.cu")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("forward_ab: CUDA is not available")
     libs = {"other": compile_lib(args.other, "other"),
             "this": compile_lib(_build.SRC_DIR, "this")}
-    runs = {k: entry(libs[k], extra_pointers(d))
-            for k, d in (("other", args.other), ("this", _build.SRC_DIR))}
+    runs = {k: entry(path) for k, path in libs.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     totals = {"other": 0.0, "this": 0.0}
     for key, n in sorted(eval_shapes().items(), key=str):

@@ -10,8 +10,9 @@ The shapes are small and ragged (extents that are no multiple of the
 kernels' tiles); ``chip_smoke.py`` holds the kernels at the main path's
 full shapes.  fp32 runs with TF32 off and agrees to max-abs-err <=
 1e-4 * max|y|; bf16 by cosine >= 0.999 and a norm ratio within 1%; the
-pool is exact.  The bf16 backward on the tensor cores is also held against
-the bf16 CUDA-core instance, which multiplies the same operands.
+pool is exact.  The bf16 forward and backward on the tensor cores are also
+held against the bf16 CUDA-core instances, which multiply the same
+operands.
 """
 
 import pytest
@@ -240,14 +241,19 @@ MMA_MODES = [(True, True, True), (True, True, False), (False, False, False),
 
 def _assert_same_operands(got, ref, name):
     """The tensor-core result against the CUDA-core one, which multiplies
-    the same bf16 operands and sums in another order: cosine >= 0.99999,
-    dx / dw (bf16) within 2^-7 * max|ref|, ds / db (fp32) within 1e-4 *
-    max|ref|."""
+    the same bf16 operands and sums in another order: cosine >= 0.99999;
+    y / dx / dw (bf16) within 2^-7 * max|ref|, ds / db (fp32) within 1e-4 *
+    max|ref|, s1 / s2 at their tolerance against plain as well (norm ratio
+    within 1%)."""
     got, ref = got.double(), ref.double()
     cos = F.cosine_similarity(got.flatten(), ref.flatten(), dim=0).item()
     err, peak = (got - ref).abs().max().item(), ref.abs().max().item()
-    tol = 2 ** -7 if name in ("dx", "dw") else 1e-4
-    assert cos >= 0.99999 and err <= tol * peak, (name, cos, err, peak)
+    ratio = (got.norm() / ref.norm()).item()
+    if name in ("s1", "s2"):
+        ok = abs(ratio - 1) <= 0.01
+    else:
+        ok = err <= (2 ** -7 if name in ("y", "dx", "dw") else 1e-4) * peak
+    assert cos >= 0.99999 and ok, (name, cos, err, peak, ratio)
 
 
 @pytest.mark.cuda
@@ -301,6 +307,123 @@ def test_fp32_bwd_keeps_the_cuda_cores(gen):
         assert torch.equal(a, c)
     assert torch.equal(tfc._launch_wgrad(*args),
                        tfc._launch_wgrad(*args, tensor_cores=False))
+
+
+# The bf16 forward on the tensor cores (``csrc/fused_conv_mma.cu``): (x
+# shape, taps, z stride, co) at every tap set, ci != co (16 -> 32, 32 ->
+# 64), ci = co = 64, co = 128 (two channel groups), ci = 8 and 24 (the
+# zero-filled half of the last k16 chunk), ci = 80 (weights in chunks),
+# X = 1, Y, X, Z no multiple of the tiles (8 rows, 32 z), the stride-2
+# cascade at even and odd Z
+FWD_MMA_CASES = [((2, 5, 13, 45, 16), (1, 3, 3), 1, 16),
+                 ((2, 4, 16, 40, 16), (1, 3, 3), 1, 32),
+                 ((2, 4, 16, 40, 32), (1, 3, 3), 1, 64),
+                 ((1, 3, 8, 40, 64), (1, 3, 3), 1, 64),
+                 ((1, 3, 9, 37, 64), (1, 3, 3), 1, 128),
+                 ((2, 3, 7, 33, 8), (1, 3, 3), 1, 16),
+                 ((1, 4, 6, 35, 24), (1, 3, 3), 1, 32),
+                 ((2, 5, 13, 45, 16), (3, 1, 1), 1, 16),
+                 ((1, 9, 1, 40, 64), (3, 1, 1), 1, 64),
+                 ((1, 3, 5, 20, 80), (3, 1, 1), 1, 16),
+                 ((1, 9, 1, 40, 16), (1, 1, 3), 1, 32),
+                 ((2, 3, 5, 37, 32), (1, 1, 1), 1, 64),
+                 ((2, 4, 8, 62, 32), (1, 1, 3), 2, 32),
+                 ((2, 3, 7, 31, 64), (1, 1, 3), 2, 64)]
+# (affine, relu, stats)
+FWD_MMA_MODES = [(True, True, True), (True, True, False),
+                 (False, False, False), (False, True, True),
+                 (True, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine,relu,stats", FWD_MMA_MODES,
+                         ids=["affine_relu_stats", "affine_relu", "identity",
+                              "relu_stats", "affine"])
+@pytest.mark.parametrize("shape,taps,stride_z,co", FWD_MMA_CASES)
+def test_bf16_forward_tensor_cores_match_plain_and_cuda_cores(
+        gen, shape, taps, stride_z, co, affine, relu, stats):
+    """The bf16 forward (± stats) on the tensor cores: against the plain
+    forward (bf16 tolerances), against the bf16 CUDA-core instance (the
+    same operands), two runs bitwise equal; the public wrapper takes it,
+    counted under the usual names; s1 / s2 are the sums of its own y."""
+    bf = torch.bfloat16
+    x, s, b, w, _, _, _ = _conv_args(gen, shape, taps, stride_z, affine, bf,
+                                     co=co)
+    name = ("fused_conv_ky3" if taps[0] == 3 else "fused_conv") + (
+        "_stats" if stats else "")
+    before = tfc.launches[name]
+    got = tfc.fused_conv(x, s, b, w, relu, stride_z, with_stats=stats)
+    again = tfc.fused_conv(x, s, b, w, relu, stride_z, with_stats=stats)
+    cores = tfc._launch_forward(x, s, b, w, relu, stride_z, stats,
+                                tensor_cores=False)
+    torch.cuda.synchronize()
+    assert tfc.launches[name] == before + 3
+    ref = tfc.fused_conv_plain(x, s, b, w, relu, stride_z, with_stats=stats)
+    if not stats:
+        got, again, cores, ref = (got,), (again,), (cores,), (ref,)
+    for out, a, c, k, r in zip(("y", "s1", "s2"), got, again, cores, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, out
+        assert torch.equal(a, c), out
+        _assert_close(a, r, bf)
+        _assert_same_operands(a, k, out)
+    if stats:
+        for a, r in zip(got[1:], tfc.channel_sums(got[0])):
+            _assert_close(a, r, torch.float32)
+
+
+# (x shape, taps, z stride, co, true extents): random everywhere, so the
+# padding beyond the extents holds garbage
+FWD_MMA_DYN_CASES = [((2, 5, 13, 45, 16), (1, 3, 3), 1, 16, (4, 11, 38)),
+                     ((1, 4, 9, 40, 64), (1, 3, 3), 1, 64, (3, 7, 33)),
+                     ((2, 5, 13, 45, 32), (3, 1, 1), 1, 32, (3, 13, 45)),
+                     ((1, 9, 1, 40, 16), (1, 1, 3), 1, 32, (7, 1, 29)),
+                     ((2, 3, 5, 37, 24), (1, 1, 1), 1, 16, (3, 2, 20)),
+                     ((2, 4, 8, 62, 32), (1, 1, 3), 2, 32, (4, 5, 49)),
+                     ((2, 3, 7, 31, 64), (1, 1, 3), 2, 64, (1, 7, 30))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,taps,stride_z,co,ext", FWD_MMA_DYN_CASES)
+def test_bf16_forward_extents_tensor_cores_match_plain_and_cuda_cores(
+        gen, shape, taps, stride_z, co, ext):
+    """K7 in bf16 on the tensor cores: against the masked plain forward,
+    against the bf16 CUDA-core instance, bitwise repeatable; the garbage
+    beyond the extents shows in the unmasked plain forward."""
+    bf = torch.bfloat16
+    x, s, b, w, _, _, _ = _conv_args(gen, shape, taps, stride_z, True, bf,
+                                     co=co)
+    name = "fused_conv_dyn_ky3" if taps[0] == 3 else "fused_conv_dyn"
+    before = tfc.launches[name]
+    got = tfc.fused_conv(x, s, b, w, True, stride_z, dyn_extents=ext)
+    again = tfc.fused_conv(x, s, b, w, True, stride_z, dyn_extents=ext)
+    cores = tfc._launch_forward(x, s, b, w, True, stride_z, False, ext,
+                                tensor_cores=False)
+    torch.cuda.synchronize()
+    assert tfc.launches[name] == before + 3
+    ref = tfc.fused_conv_dyn_plain(x, s, b, w, True, stride_z, ext)
+    assert got.shape == ref.shape and got.dtype == bf
+    assert torch.equal(got, again)
+    _assert_close(got, ref, bf)
+    _assert_same_operands(got, cores, "y")
+    unmasked = tfc.fused_conv_plain(x, s, b, w, True, stride_z)
+    assert not torch.equal(unmasked, ref)
+    whole = tuple(shape[1:4])
+    assert torch.equal(tfc.fused_conv(x, s, b, w, True, stride_z,
+                                      dyn_extents=whole),
+                       tfc.fused_conv(x, s, b, w, True, stride_z))
+
+
+@pytest.mark.cuda
+def test_fp32_forward_keeps_the_cuda_cores(gen):
+    """fp32 takes the CUDA-core forward whatever ``tensor_cores`` says."""
+    x, s, b, w, _, _, _ = _conv_args(gen, (1, 4, 8, 40, 16), (1, 3, 3), 1,
+                                     True, torch.float32)
+    for stats in (False, True):
+        got = tfc._launch_forward(x, s, b, w, True, 1, stats)
+        cores = tfc._launch_forward(x, s, b, w, True, 1, stats,
+                                    tensor_cores=False)
+        for a, c in zip(got if stats else (got,), cores if stats else (cores,)):
+            assert torch.equal(a, c)
 
 
 def _tied(gen, shape, dtype):

@@ -768,3 +768,38 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax",
                                "multimodal_fusion_fpn_tpu"), (path, mod)
+
+
+def _passes_tensor_cores(path):
+    """The lines of ``path`` whose calls pass a ``tensor_cores`` argument
+    (by keyword, or by a name or attribute of that name)."""
+    tree = ast.parse(open(path).read(), path)
+    lines = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        args = list(node.args) + [k.value for k in node.keywords]
+        named = [k.arg for k in node.keywords] + [
+            a.id if isinstance(a, ast.Name) else
+            a.attr if isinstance(a, ast.Attribute) else None for a in args]
+        if "tensor_cores" in named:
+            lines.append(node.lineno)
+    return lines
+
+
+def test_model_paths_never_pass_tensor_cores():
+    """``tensor_cores`` (the private A/B switch of the fused-conv
+    launchers and of ``fused_block``'s per-conv path) is passed only by
+    the ops themselves, ``chip_smoke.py`` and the card tests: nothing under
+    ``models``, ``eval`` or ``train`` passes it, so the model's paths always
+    take the tensor cores in bf16."""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(tfc.__file__)))
+    files = []
+    for sub in ("models", "eval", "train"):
+        for d, _, names in os.walk(os.path.join(pkg, sub)):
+            files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 8
+    for path in files:
+        assert _passes_tensor_cores(path) == [], path
+    # the scan sees the keyword where it is passed
+    assert _passes_tensor_cores(tfb.__file__)
