@@ -9,9 +9,10 @@ Phases, each of which fails the run on any error:
    (``nvcc`` for sm_90a, one process per source, in parallel) and print
    the card's name and power limit.  Count the ``HMMA`` (tensor-core)
    instructions of each kernel of the bf16 forward
-   (``csrc/fused_conv_mma.cu``, all FWD_MMA_INSTANCES of them) and the bf16
-   backward (``csrc/fused_conv_bwd_mma.cu``) in its SASS (``cuobjdump
-   --dump-sass``); a kernel without one fails the run.
+   (``csrc/fused_conv_mma.cu``, all FWD_MMA_INSTANCES of them), the bf16
+   backward (``csrc/fused_conv_bwd_mma.cu``) and the bf16 whole-block
+   kernel (``csrc/fused_block_mma.cu``, all K8_MMA_INSTANCES) in its SASS
+   (``cuobjdump --dump-sass``); a kernel without one fails the run.
 2. Eval kernels (K1, K2, K5f) against their plain PyTorch versions, on
    the card, at every call shape of one member's eval forward at each of
    the two configurations below.  fp32 runs with TF32 off and must agree
@@ -44,7 +45,8 @@ Phases, each of which fails the run on any error:
    train step at each configuration, with the same tolerances (K5b exact,
    on inputs full of ties); two runs bitwise equal.  Library calls:
    ``aten.convolution_backward`` (dgrad or wgrad on the activated input)
-   and the ``F.max_pool3d`` backward.  In bf16 the stats forward, dgrad
+   and the ``F.max_pool3d`` backward; K5b and that backward timed on the
+   device alone (``device_ms``).  In bf16 the stats forward, dgrad
    and wgrad run on the tensor cores; at each of their shapes they are
    also held against the bf16 CUDA-core instance, as in phase 2: cosine
    >= 0.99999 on every output, y / dx / dw within 2^-7 * max|ref|, ds / db
@@ -115,13 +117,17 @@ Phases, each of which fails the run on any error:
    padding full of garbage, which the unmasked plain version must show),
    with phase 2's tolerances; each shape line has the kernel's time, the
    plain version's (cuDNN per op), the per-conv kernel path's (K1/K2/K7
-   on the same block: ``fused_chain_per_conv``), the bound and the share
-   of the kernel's work that its halos recompute.  (b) On the same inputs,
-   the kernel against the per-conv kernel path, the model's (bf16 on the
-   tensor cores) and the CUDA-core one (``tensor_cores=False``, the
-   arithmetic K8 shares; its time too): fp32 max-abs-err <= 1e-5 *
-   max|y|, bf16 cosine >= 0.9999 and norm ratio within 1%, and whether
-   they are bit-equal.  (c) The 5-member ensemble at the crop shapes, bf16
+   on the same block: ``fused_chain_per_conv``), the bf16 CUDA-core K8
+   instance's (``cuda_cores_ms``), all on the device alone (``device_ms``)
+   with the launcher's ``host_bound_ms``, the bound, the tiling
+   (``fb.plan``) and the share of the kernel's work that its halos
+   recompute.  (b) On the same inputs, the kernel against the per-conv
+   kernel path: bf16 (``csrc/fused_block_mma.cu``) bit-equal to the
+   tensor-core per-conv path, the model's; the bf16 CUDA-core K8 instance
+   (``fb._launch(..., tensor_cores=False)``) bit-equal to the CUDA-core
+   per-conv path (``tensor_cores=False``); fp32 bit-equal to the fp32
+   per-conv path; each also at fp32 max-abs-err <= 1e-5 * max|y| or bf16
+   cosine >= 0.9999 and norm ratio within 1%.  (c) The 5-member ensemble at the crop shapes, bf16
    B=4 and fp32 B=1, under each fusion against the per-conv kernel path
    (fp32 1e-5 * max|y|, bf16 cosine >= 0.9995 and norm ratio within 1%)
    and against ``kernels=False`` (phase 3's bounds), with the launches
@@ -153,8 +159,8 @@ Phases, each of which fails the run on any error:
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8; max-abs-err of its fp32 comparisons;
    per-step times summed over the bf16 B=4 calls, for the tensor-core
-   fused-conv kernels (forward and backward) also the bf16 CUDA-core
-   instance's (``cuda_cores_ms``); the data gradient of
+   kernels (the fused-conv forward and backward, K8) also the bf16
+   CUDA-core instance's (``cuda_cores_ms``); the data gradient of
    K10, off the path, with 0 launches and ``on_main_path`` false), the
    card line, and last the ``{"ok": true, "device": ...}`` line.
 
@@ -204,6 +210,7 @@ _FCB = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd.cu"
 _FCBM = "multimodal_fusion_fpn_torch/csrc/fused_conv_bwd_mma.cu"
 _POOL = "multimodal_fusion_fpn_torch/csrc/pool.cu"
 _FB = "multimodal_fusion_fpn_torch/csrc/fused_block.cu"
+_FBM = "multimodal_fusion_fpn_torch/csrc/fused_block_mma.cu"
 _BC = "multimodal_fusion_fpn_torch/csrc/banded_conv.cu"
 _TPU_FC = "multimodal_fusion_fpn_tpu/ops/pallas/fused_conv.py"
 _TPU_POOL = "multimodal_fusion_fpn_tpu/ops/pallas/pool.py"
@@ -222,10 +229,10 @@ KERNELS = {
     "max_pool3d_cl_bwd": (_POOL, f"{_TPU_POOL}:132", "train"),
     "fused_conv_dyn": (_FCM, f"{_TPU_FC}:445", "bucketed"),
     "fused_conv_dyn_ky3": (_FCM, f"{_TPU_FC}:2594", "bucketed"),
-    "fused_chain": (_FB, f"{_TPU_FC}:1445", "chain"),
-    "fused_pair": (_FB, f"{_TPU_FC}:1294", "pair"),
-    "fused_chain_dyn": (_FB, f"{_TPU_FC}:1445", "bucketed_chain"),
-    "fused_pair_dyn": (_FB, f"{_TPU_FC}:1294", "bucketed_pair"),
+    "fused_chain": (_FBM, f"{_TPU_FC}:1445", "chain"),
+    "fused_pair": (_FBM, f"{_TPU_FC}:1294", "pair"),
+    "fused_chain_dyn": (_FBM, f"{_TPU_FC}:1445", "bucketed_chain"),
+    "fused_pair_dyn": (_FBM, f"{_TPU_FC}:1294", "bucketed_pair"),
     "banded_conv": (_BC, f"{_TPU_BC}:66", "ensemble"),
     "banded_conv_dyn": (_BC, f"{_TPU_BC}:66", "bucketed"),
     "banded_conv_wgrad": (_BC, f"{_TPU_BC}:66", "train"),
@@ -238,6 +245,11 @@ BWD_INSTANCES = {"bf16": _FCBM, "fp32": _FCB}
 # instances of the bf16 forward kernel: 5 tap sets x 3 channel blocks (16,
 # 32, 64 output channels) x with and without stats
 FWD_MMA_INSTANCES = 30
+# the whole-block kernel (K8): bf16 on the tensor cores, fp32 (and the bf16
+# CUDA-core instance, ``tensor_cores=False``) on the CUDA cores; its bf16
+# instances: 16, 32, 64 output channels x 2 or 3 convs
+K8_INSTANCES = {"bf16": _FBM, "fp32": _FB}
+K8_MMA_INSTANCES = 6
 TC_ROWS = {"fused_conv": "K1 (and K9 _rf_kernel)",
            "fused_conv_ky3": "K2",
            "fused_conv_stats": "K1 with_stats (and K9)",
@@ -653,7 +665,8 @@ def tied(shape, gen, dt):
 
 
 def check_pool_bwd_shape(key, n_calls, gen):
-    """K5b vs its plain version, exact, on an input full of ties."""
+    """K5b vs its plain version, exact, on an input full of ties; the
+    kernel and cuDNN's backward timed on the device alone."""
     import torch
     import torch.nn.functional as F
     from multimodal_fusion_fpn_torch.ops import pool
@@ -674,11 +687,13 @@ def check_pool_bwd_shape(key, n_calls, gen):
         gc, xc, list(win), list(win), [0, 0, 0], [1, 1, 1], False, idx)
     nbytes = (2 * x.numel() + 2 * y.numel()) * x.element_size()
     b_ms, b_by = bound(nbytes, float(x.numel()), dts)
+    k_ms = device_ms(run)
     return dict(kernel=name, dtype=dts, x=list(xs), window=list(win),
-                calls_per_step=n_calls, kernel_ms=time_ms(run),
+                calls_per_step=n_calls, kernel_ms=k_ms, device_ms=k_ms,
+                host_bound_ms=time_ms(run),
                 plain_ms=time_ms(
                     lambda: pool.max_pool3d_cl_bwd_plain(x, y, g, win)),
-                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(lib), bound_ms=b_ms, bound_by=b_by,
                 ok=exact and ties, ties_present=ties,
                 max_err=(dx.float() - ref.float()).abs().max().item())
 
@@ -754,7 +769,7 @@ def check_banded_shape(key, n_calls, gen):
 
 def hmma_counts(lib):
     """{kernel: HMMA instructions in its SASS} for the tensor-core kernels
-    of ``lib`` (the bf16 forward, dgrad and wgrad; ``cuobjdump
+    of ``lib`` (the bf16 forward, dgrad, wgrad and whole block; ``cuobjdump
     --dump-sass``, from the toolkit beside nvcc), names demangled to their
     template arguments."""
     import os
@@ -767,7 +782,8 @@ def hmma_counts(lib):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            m2 = re.search(r"((?:fused_conv|dgrad|wgrad)_mma_kernel)I"
+            m2 = re.search(r"((?:fused_conv|fused_block|dgrad|wgrad)"
+                           r"_mma_kernel)I"
                            r"((?:L[ib]\d+E)+)", m.group(1))
             args = [] if m2 is None else re.findall(r"L[ib](\d+)E",
                                                     m2.group(2))
@@ -1047,17 +1063,19 @@ def block_cost(xs, wshapes, final, esize):
 def recompute_share(xs, wshapes, tile):
     """The share of the kernel's conv work beyond the block's own: the
     conv-0 halo in x and z, the two halo rows of each y chunk, and the
-    tiles' overhang past X and Z (``tile`` = (TX, G, ...), the plan)."""
-    TX, G = tile[:2]
+    windows' overhang past X and Z (``tile`` = (TX, G, smem, blocks, TZ,
+    streamed), the plan; the tensor-core kernel computes the halo rows at the
+    volume's y edges too)."""
+    TX, G, _, _, TZ = tile[:5]
     B, Y, X, Z, ci = xs
     co = wshapes[0][-1]
     ky3 = len(wshapes) == 3
     rows = sum(min(Y, y0 + G + ky3) - max(0, y0 - ky3)
                for y0 in range(0, Y, G))
-    tiles = B * -(-X // TX) * -(-Z // 32)
-    done = tiles * (rows * ((TX + 2) * 34 * 9 * ci * co
-                            + TX * 32 * 9 * co * co)
-                    + (Y * TX * 32 * 3 * co * co if ky3 else 0))
+    tiles = B * -(-X // TX) * -(-Z // TZ)
+    done = tiles * (rows * ((TX + 2) * (TZ + 2) * 9 * ci * co
+                            + TX * TZ * 9 * co * co)
+                    + (Y * TX * TZ * 3 * co * co if ky3 else 0))
     useful = B * Y * X * Z * (9 * ci * co + 9 * co * co
                               + (3 * co * co if ky3 else 0))
     return done / useful - 1
@@ -1065,52 +1083,68 @@ def recompute_share(xs, wshapes, tile):
 
 def check_block_shape(key, n_calls, gen):
     """(a) and (b) of phase 7 at one recorded chain or pair call: (b)
-    against the per-conv kernel path on the tensor cores (bf16; the
-    model's) and on the CUDA cores (K8's own arithmetic)."""
+    bit-equality to the per-conv kernel path, bf16 on the tensor cores (the
+    model's) and the bf16 CUDA-core K8 instance on the CUDA cores, fp32 on
+    the CUDA cores; times on the device alone."""
     import torch
     from multimodal_fusion_fpn_torch.ops import fused_block as fb
     name, xs, wshapes, final, _, _, dts, ext = key
     dt = _dtype(dts)
+    tc = dt == torch.bfloat16
     x, s_in, b_in, relu0, convs, ds = block_inputs(key, gen)
     if name.startswith("fused_pair"):
         args = (x, s_in, b_in, convs[0][0], convs[0][1], convs[0][2],
                 convs[1][0], relu0)
         fns = (fb.fused_pair, fb.fused_pair_plain, fb.fused_pair_per_conv)
+        launch_args = (x, s_in, b_in, relu0,
+                       [convs[0], (convs[1][0], None, None)], "raw", None)
     else:
         args = (x, s_in, b_in, relu0, convs, final, ds)
         fns = (fb.fused_chain, fb.fused_chain_plain, fb.fused_chain_per_conv)
+        launch_args = args
+    kname = name[:-4] if name.endswith("_dyn") else name
     run, plain, per_conv = (lambda f=f: f(*args, dyn_extents=ext)
                             for f in fns)
     per_conv_cc = lambda: fns[2](*args, dyn_extents=ext, tensor_cores=False)
+    k8_cc = lambda: fb._launch(kname, *launch_args, ext, tensor_cores=False)
     y = run()
     ok, stats = compare(y, plain(), dt)
     same = torch.equal(y, run())
     pc, pcc = per_conv(), per_conv_cc()
     ok_pc, st_pc = compare_bucketed(y, pc, dt)
-    ok_pcc, st_pcc = compare_bucketed(y, pcc, dt)
+    eq_pc = torch.equal(y, pc)
+    rec_cc = {}
+    if tc:
+        y_cc = k8_cc()
+        eq_cc = torch.equal(y_cc, pcc)
+        rec_cc = dict(cuda_cores_bit_equal_to_per_conv_cuda_cores=eq_cc,
+                      cuda_cores_ms=device_ms(k8_cc))
+    else:
+        eq_cc = torch.equal(y, pcc)
     whole = ext is None or tuple(ext) == tuple(xs[1:4])
     garbage_shows = whole or not compare(fns[1](*args), plain(), dt)[0]
     nbytes, flops = block_cost(xs, wshapes, final, x.element_size())
     b_ms, b_by = bound(nbytes, flops, dts)
-    tile = fb.plan(x, len(wshapes), wshapes[0][-1])
+    tile = fb.plan(x, len(wshapes), wshapes[0][-1], final)
     return dict(kernel=name, dtype=dts, x=list(xs),
                 w=[list(w) for w in wshapes], final=final, relu0=relu0,
                 affine=s_in is not None,
                 extents=None if ext is None else list(ext),
                 calls_per_step=n_calls, flop=flops, bytes=nbytes,
                 bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
-                tile_x=tile[0], chunk_rows=tile[1], smem_bytes=tile[2],
-                blocks=tile[3],
+                tensor_cores=tc, source=K8_INSTANCES["bf16" if tc else "fp32"],
+                tile_x=tile[0], tile_z=tile[4], chunk_rows=tile[1],
+                smem_bytes=tile[2], blocks=tile[3], weights_streamed=tile[5],
                 recompute_share=recompute_share(xs, wshapes, tile),
-                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
-                per_conv_ms=time_ms(per_conv),
-                per_conv_cuda_cores_ms=time_ms(per_conv_cc), library_ms=None,
-                bound_ms=b_ms, bound_by=b_by,
-                ok=ok and same and ok_pc and ok_pcc and garbage_shows,
+                kernel_ms=device_ms(run), host_bound_ms=time_ms(run),
+                plain_ms=device_ms(plain), per_conv_ms=device_ms(per_conv),
+                per_conv_cuda_cores_ms=device_ms(per_conv_cc), **rec_cc,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                ok=ok and same and ok_pc and eq_pc and eq_cc
+                and garbage_shows,
                 bitwise_repeatable=same, garbage_shows=garbage_shows,
-                vs_per_conv=dict(st_pc, ok=ok_pc,
-                                 bit_equal=torch.equal(y, pc)),
-                vs_per_conv_cuda_cores=dict(st_pcc, ok=ok_pcc,
+                vs_per_conv=dict(st_pc, ok=ok_pc, bit_equal=eq_pc),
+                vs_per_conv_cuda_cores=dict(compare_bucketed(y, pcc, dt)[1],
                                             bit_equal=torch.equal(y, pcc)),
                 **stats)
 
@@ -1617,20 +1651,25 @@ def main() -> int:
 
     # --- 1. build ---------------------------------------------------------
     libs = ["fused_conv", "fused_conv_mma", "fused_conv_bwd",
-            "fused_conv_bwd_mma", "pool", "fused_block", "banded_conv"]
+            "fused_conv_bwd_mma", "pool", "fused_block", "fused_block_mma",
+            "banded_conv"]
     _build.build(libs)
     for name in libs:
         _build.load(name)
     card = card_line()
     print(card, flush=True)
     hmma = {lib: hmma_counts(_build.library_path(lib))
-            for lib in ("fused_conv_mma", "fused_conv_bwd_mma")}
+            for lib in ("fused_conv_mma", "fused_conv_bwd_mma",
+                        "fused_block_mma")}
     emit({"phase": "build", "seconds": time.time() - t_start,
           "libraries": [_build.library_path(n) for n in libs],
           "hmma_per_bf16_forward_kernel": hmma["fused_conv_mma"],
-          "hmma_per_bf16_backward_kernel": hmma["fused_conv_bwd_mma"]})
+          "hmma_per_bf16_backward_kernel": hmma["fused_conv_bwd_mma"],
+          "hmma_per_bf16_block_kernel": hmma["fused_block_mma"],
+          "bf16_block_kernel_instances": len(hmma["fused_block_mma"])})
     for lib, n_inst in (("fused_conv_mma", FWD_MMA_INSTANCES),
-                        ("fused_conv_bwd_mma", None)):
+                        ("fused_conv_bwd_mma", None),
+                        ("fused_block_mma", K8_MMA_INSTANCES)):
         no_tc = [k for k, n in hmma[lib].items() if n == 0]
         if not hmma[lib] or no_tc or n_inst not in (None, len(hmma[lib])):
             failures.append(f"{lib}: tensor-core kernels without HMMA, or "
@@ -2058,9 +2097,12 @@ def main() -> int:
             "library_ms": (None if None in lib
                            else per_step(main, "library_ms"))})
         if main and "per_conv_ms" in main[0]:
-            summary[-1]["per_conv_ms"] = per_step(main, "per_conv_ms")
-            summary[-1]["per_conv_cuda_cores_ms"] = per_step(
-                main, "per_conv_cuda_cores_ms")
+            summary[-1].update(
+                instances=K8_INSTANCES,
+                cuda_cores_ms=per_step(main, "cuda_cores_ms"),
+                per_conv_ms=per_step(main, "per_conv_ms"),
+                per_conv_cuda_cores_ms=per_step(main,
+                                                "per_conv_cuda_cores_ms"))
         if name in TC_ROWS:
             summary[-1].update(
                 tpu_rows=TC_ROWS[name],

@@ -29,19 +29,26 @@ and each product and sum of an affine is rounded too (``x*s``, then
 conv.  Eval only: the wrappers raise when an input requires grad (the TPU
 kernels have no VJP either).
 
-Source note.  ``csrc/fused_block.cu`` replaces the TPU kernels of
+Source note.  ``csrc/fused_block_mma.cu`` (bf16, on the tensor cores) and
+``csrc/fused_block.cu`` (fp32, on the CUDA cores) replace the TPU kernels of
 ``multimodal_fusion_fpn_tpu/ops/pallas/fused_conv.py`` ``_kernel2`` (the
 pair, launched by ``fused_conv2_eval``, ``MMF_FUSED_PAIR=1``) and
 ``_chain_kernel`` (the chain, launched by ``fused_chain_eval``,
-``MMF_FUSED_CHAIN=1``), both with ``with_dyn``.  One template: two (1,3,3)
+``MMF_FUSED_CHAIN=1``), both with ``with_dyn``.  Each takes two (1,3,3)
 convs, or (1,3,3), (1,3,3), (3,1,1) (the trailing conv reads a ring of the
-last three rows), fp32 and bf16, with the final mode, ``relu0`` and the
-extents as arguments; other taps raise.  Its bound and design are in the
-.cu header: operation-bound at every stage-1-3 shape; one block walks a
-column of rows of a TX x 32 window with the input, conv 0's output and the
-ring in shared memory in the storage type; the conv-0 halo (x, z) and two
-rows per y-chunk are computed twice.  CUDA cores, no tensor cores yet.
-:func:`plan` gives the tiling a call takes.
+last three rows), with the final mode, ``relu0`` and the extents as
+arguments; other taps raise.  Their bounds and designs are in the .cu
+headers.  bf16 (stage 1 bound by bytes, stages 2-3 by operations): an
+implicit GEMM per conv (``mma.sync``) over a TX x TZ window whose input,
+conv-0 output and ring stay in shared memory as bf16; at 64 channels the
+weights of three convs stream through two k16 slots.  It takes co in (16, 32, 64) and
+any ci % 8 == 0 whose tiles fit, and is bitwise equal to the tensor-core
+per-conv path (:func:`fused_chain_per_conv`).  fp32: the same function as
+fp32 FMAs, bitwise equal to the fp32 per-conv path.  The bf16 CUDA-core
+instance of ``fused_block.cu`` stays reachable through the private
+``tensor_cores=False`` of :func:`_launch`, bitwise equal to the CUDA-core
+per-conv path: only for comparing the two on the card; the model never
+passes it.  :func:`plan` gives the tiling a call takes.
 
 Launch counters: ``launches["fused_chain"]``, ``["fused_pair"]``, and
 ``["fused_chain_dyn"]`` / ``["fused_pair_dyn"]`` for calls with extents;
@@ -124,9 +131,11 @@ def fused_chain_per_conv(x: torch.Tensor, s_in: Optional[torch.Tensor],
                          tensor_cores: bool = True) -> torch.Tensor:
     """The same composition through the per-conv kernel
     (``fused_conv``: K1, K2 and K7 on a CUDA tensor), which the model runs
-    without ``block_fusion``; the yardstick of the whole-block kernel.
-    ``tensor_cores=False`` takes the bf16 CUDA-core per-conv kernel, to
-    which K8 is bit-equal: only for comparing the two on the card."""
+    without ``block_fusion``; the yardstick of the whole-block kernel,
+    which is bitwise equal to it.  ``tensor_cores=False`` takes the bf16
+    CUDA-core per-conv kernel, to which K8's bf16 CUDA-core instance
+    (``_launch(..., tensor_cores=False)``) is bit-equal: only for comparing
+    the two on the card."""
     conv = functools.partial(_conv_per_conv, tensor_cores=tensor_cores)
     return _chain_of(conv, x, s_in, b_in, relu0, convs, final, ds,
                      dyn_extents)
@@ -210,45 +219,82 @@ def _check(who, x, s_in, b_in, convs, final, ds):
                              f"{t.device}; x is {x.dtype} on {x.device}")
     if not x.is_contiguous():
         raise ValueError(f"{who}: x is not contiguous")
-    if plan(x, len(convs), co)[0] == 0:
+    if _tensor_cores(x) and co not in (16, 32, 64):
+        raise ValueError(f"{who}: the bf16 kernel (tensor cores) takes co in "
+                         f"(16, 32, 64), got ci={ci}, co={co}")
+    if plan(x, len(convs), co, final)[0] == 0:
         raise ValueError(f"{who}: the tiles of ci={ci}, co={co} in "
                          f"{x.dtype} do not fit in shared memory")
 
 
-def plan(x: torch.Tensor, n_conv: int, co: int) -> Tuple[int, int, int, int]:
-    """(TX, G, shared-memory bytes per block, blocks) of the kernel's tiling
-    for input ``x`` (TX = 0: it does not fit)."""
+def _tensor_cores(x, tensor_cores=True):
+    return tensor_cores and x.dtype == torch.bfloat16
+
+
+def plan(x: torch.Tensor, n_conv: int, co: int, final: str = "relu",
+         tensor_cores: bool = True) -> Tuple[int, ...]:
+    """(TX, G, shared-memory bytes per block, blocks, TZ, weights streamed)
+    of the kernel's tiling for input ``x``: a TX x TZ (x, z) window walking
+    G rows (TX = 0: it does not fit), its weights resident in shared memory
+    (0) or streamed through two k16 slots (1).  bf16 takes the tensor-core
+    kernel unless ``tensor_cores`` is False."""
     B, Y, X, Z, ci = x.shape
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 6)()
+    if _tensor_cores(x, tensor_cores):
+        fn = _fc._fn("fused_block_mma", "mmf_fused_block_mma_plan",
+                     [_INT] * 8 + [_PTR])
+        rc = fn(n_conv, FINALS.index(final), B, Y, X, Z, ci, co,
+                ctypes.addressof(out))
+        if rc > 0:
+            raise RuntimeError(f"fused_block: plan failed, CUDA error {rc}")
+        return tuple(int(v) for v in out)
     fn = _fc._fn("fused_block", "mmf_fused_block_plan", [_INT] * 8 + [_PTR])
     fn(_fc._DTYPES[x.dtype], n_conv, B, Y, X, Z, ci, co, ctypes.addressof(out))
-    return tuple(int(v) for v in out)
+    return tuple(int(v) for v in out[:4]) + (32, 0)
 
 
-def _launch(name, x, s_in, b_in, relu0, convs, final, ds, ext):
+def _launch(name, x, s_in, b_in, relu0, convs, final, ds, ext,
+            tensor_cores=True):
+    """The kernel on CUDA tensors that passed :func:`_check`: bf16 on the
+    tensor cores (``csrc/fused_block_mma.cu``), fp32 on the CUDA cores
+    (``csrc/fused_block.cu``).  ``tensor_cores=False`` takes the bf16
+    CUDA-core instance: only for comparing the two on the card; the model
+    never passes it."""
     B, Y, X, Z, ci = x.shape
     co = convs[0][0].shape[4]
+    mma = _tensor_cores(x, tensor_cores)
     out = torch.empty((B, Y, X, Z, co), dtype=x.dtype, device=x.device)
-    ws = ([w.float().contiguous() for w, _, _ in convs]
-          + [None] * (3 - len(convs)))
+    # bf16 weights as they are (tensor cores); fp32 for the CUDA cores
+    wt = ((lambda w: w.contiguous()) if mma
+          else (lambda w: w.float().contiguous()))
+    ws = [wt(w) for w, _, _ in convs] + [None] * (3 - len(convs))
     sb = [(s, b) for _, s, b in convs] + [(None, None)] * (3 - len(convs))
     if final == "raw":
         sb[len(convs) - 1] = (None, None)
     wd = sd = bd = None
     if final == "res_conv":
-        wd, sd, bd = ds[0].float().contiguous(), ds[1], ds[2]
+        wd, sd, bd = wt(ds[0]), ds[1], ds[2]
     vec = lambda t: None if t is None else t.contiguous()
     dyn = None if ext is None else (ctypes.c_int * 3)(*ext)
-    fn = _fc._fn("fused_block", "mmf_fused_block",
-                 [_INT] * 4 + [_PTR] * 17 + [_INT] * 6 + [_PTR])
     args = [x, vec(s_in), vec(b_in)]
     for w, (s, b) in zip(ws, sb):
         args += [w, vec(s), vec(b)]
     args += [wd, vec(sd), vec(bd), out]
-    rc = fn(_fc._DTYPES[x.dtype], len(convs), FINALS.index(final), int(relu0),
-            *[_fc._ptr(t) for t in args],
-            None if dyn is None else ctypes.addressof(dyn),
-            B, Y, X, Z, ci, co, _fc._stream(x))
+    ptrs = [_fc._ptr(t) for t in args]
+    tail = (None if dyn is None else ctypes.addressof(dyn), B, Y, X, Z, ci,
+            co, _fc._stream(x))
+    if mma:
+        if any(p is not None and p % 16 for p in ptrs):
+            raise ValueError(f"{name}: the bf16 kernel needs 16-byte aligned "
+                             f"tensors")
+        fn = _fc._fn("fused_block_mma", "mmf_fused_block_mma",
+                     [_INT] * 3 + [_PTR] * 17 + [_INT] * 6 + [_PTR])
+        rc = fn(len(convs), FINALS.index(final), int(relu0), *ptrs, *tail)
+    else:
+        fn = _fc._fn("fused_block", "mmf_fused_block",
+                     [_INT] * 4 + [_PTR] * 17 + [_INT] * 6 + [_PTR])
+        rc = fn(_fc._DTYPES[x.dtype], len(convs), FINALS.index(final),
+                int(relu0), *ptrs, *tail)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
     key = name + ("_dyn" if ext is not None else "")

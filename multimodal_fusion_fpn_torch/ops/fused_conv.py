@@ -43,8 +43,8 @@ Source note.  The CUDA kernels replace the TPU kernels of
   forward), on the tensor cores (``mma.sync``), counted under the same
   names.  The bf16 CUDA-core instances of ``fused_conv.cu`` stay reachable
   through the private ``tensor_cores=False`` of :func:`_launch_forward`,
-  for comparing the two on the card (and for K8's bit-equality to the
-  CUDA-core per-conv path, ``fused_block``).
+  for comparing the two on the card (and for the bit-equality of K8's bf16
+  CUDA-core instance to the CUDA-core per-conv path, ``fused_block``).
 * ``csrc/fused_conv_bwd.cu``: ``_dx_kernel`` (K3, ``_dx_pallas(...,
   want_band=True)``, the merged backward) and ``_yck_dx_kernel`` (K4,
   ``_dx_pallas_yck``), as a dgrad kernel (dx, ds, db) and a wgrad kernel

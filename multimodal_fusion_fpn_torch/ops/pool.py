@@ -17,10 +17,15 @@ Source note.  The CUDA kernels (``csrc/pool.cu``) replace the TPU kernels
 (``_fwd_row_kernel`` / ``_fwd_kernel``, K5f) and ``_pool_vjp_bwd``
 (``_bwd_row_kernel`` / ``_bwd_kernel``, K5b), which pool the packed (bs, nb)
 layout.  On channels-last data that is a plain max pool.  Both are bound by
-memory on the H100 (each byte read once, each output byte written once);
-one thread per element, consecutive threads on consecutive channels, keeps
-every read coalesced.  The first-max backward stays plain PyTorch, as the
-JAX package leaves it to XLA.  2D maps (B, H, W, C) pool as (B, H, 1, W, C)
+memory on the H100 (each byte read once, each output byte written once).
+The forward runs one thread per output element, consecutive threads on
+consecutive channels, so every read is coalesced.  The backward runs one
+thread per pooled position and 8 channels (16-byte vectors in bf16), over a
+grid of pooled rows with 32-bit offsets inside a row; it loads ``y`` and
+``g`` once, compares the window's inputs lane by lane and zeroes the
+region beyond the floor-sized pool itself; C % 8 != 0 takes its scalar
+lanes.  The first-max backward stays plain PyTorch, as the JAX package
+leaves it to XLA.  2D maps (B, H, W, C) pool as (B, H, 1, W, C)
 with window (wH, 1, wW).
 """
 

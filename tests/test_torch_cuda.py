@@ -435,14 +435,29 @@ def _tied(gen, shape, dtype):
     return v.to(dtype)
 
 
+# (x shape, window): the floor leaves a remainder on every axis; C = 8, 24
+# and 72 take the 8-channel vector lanes, C = 12 the scalar lanes
+POOL_BWD_CASES = [((2, 5, 9, 63, 16), (1, 2, 2)),
+                  ((2, 5, 9, 63, 16), (2, 2, 2)),
+                  ((2, 5, 9, 63, 16), (1, 1, 2)),
+                  ((2, 5, 9, 63, 16), (2, 1, 2)),
+                  ((1, 7, 5, 31, 8), (2, 2, 2)),
+                  ((2, 3, 7, 29, 24), (2, 2, 2)),
+                  ((1, 5, 3, 17, 72), (2, 2, 2)),
+                  ((1, 7, 5, 33, 12), (2, 2, 2)),
+                  ((2, 4, 6, 9, 24), (3, 4, 4))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("window", [(1, 2, 2), (2, 2, 2), (1, 1, 2),
-                                    (2, 1, 2)])
-def test_max_pool_bwd_kernel_matches_plain_on_ties(gen, window, dtype):
-    """K5b: g to every tied max (+0 == -0), 0 beyond the floor-sized
-    region; exact.  The autograd Function launches it."""
-    x = _tied(gen, (2, 5, 9, 63, 16), dtype)
+@pytest.mark.parametrize("shape,window", POOL_BWD_CASES)
+def test_max_pool_bwd_kernel_matches_plain_on_ties(gen, shape, window, dtype):
+    """K5b: g to every tied max (+0 == -0, both present in the input), 0
+    beyond the floor-sized region; exact.  The autograd Function launches
+    it."""
+    x = _tied(gen, shape, dtype)
+    assert (x == 0).any() and torch.signbit(x[x == 0]).any()
+    assert not torch.signbit(x[x == 0]).all()
     y = tpool.max_pool3d_cl(x, window)
     g = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
     before = tpool.launches["max_pool3d_cl_bwd"]
@@ -679,6 +694,128 @@ def test_block_fusion_model_on_the_card_matches_per_conv(gen, mode):
         (23, 3) if mode == "chain" else (25, 6))
     err = (got.double() - ref.double()).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+# The bf16 K8 on the tensor cores (``csrc/fused_block_mma.cu``): every
+# CHAIN_CASES and PAIR_CASES entry, plus a model-like stage-1 chain at
+# ragged Y, X, Z (16 channels, several windows along x and z), a 64-channel
+# chain of several windows and y chunks (weights streamed through two k16
+# slots), ci = 24 with the entry affine (the zero-filled half of the last
+# k16 chunk), and two 64-channel convs from ci = 80, whose weights do not
+# fit resident (streamed with two convs)
+TC_CHAIN_CASES = CHAIN_CASES + [
+    ((1, 13, 21, 99, 16), 3, 16, "res_id", None),
+    ((1, 13, 21, 99, 16), 3, 16, "res_id", (11, 18, 90)),
+    ((2, 11, 19, 75, 64), 3, 64, "res_id", None),
+    ((1, 6, 11, 70, 24), 2, 32, "affine", None),
+    ((1, 5, 9, 41, 24), 3, 32, "affine", (4, 8, 37)),
+    ((1, 5, 9, 40, 80), 2, 64, "relu", None)]
+
+
+def _pair_args(gen, dtype, shape, co, entry):
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    ci = shape[-1]
+    s0, b0 = (1 + 0.2 * rnd(ci), 0.2 * rnd(ci)) if entry else (None, None)
+    return (rnd(*shape), s0, b0, rnd(1, 3, 3, ci, co) / (9 * ci) ** 0.5,
+            1 + 0.2 * rnd(co), 0.2 * rnd(co),
+            rnd(1, 3, 3, co, co) / (9 * co) ** 0.5, entry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_conv,co,final,ext", TC_CHAIN_CASES)
+def test_bf16_chain_tensor_cores_bit_equal_to_per_conv(gen, shape, n_conv,
+                                                       co, final, ext):
+    """The bf16 chain on the tensor cores: bitwise equal to the
+    tensor-core per-conv path (the model's without block fusion), against
+    plain at the bf16 tolerance, bitwise repeatable, one launch each; with
+    extents 0 at and beyond them."""
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    args = _chain_args(gen, torch.bfloat16, shape, n_conv, co, final)
+    name = "fused_chain_dyn" if ext else "fused_chain"
+    before = dict(tfb.launches)
+    y = tfb.fused_chain(*args, dyn_extents=ext)
+    again = tfb.fused_chain(*args, dyn_extents=ext)
+    torch.cuda.synchronize()
+    assert tfb.launches[name] == before[name] + 2
+    assert sum(tfb.launches.values()) == sum(before.values()) + 2
+    assert y.shape == shape[:4] + (co,) and y.dtype == torch.bfloat16
+    assert torch.equal(y, again)
+    assert torch.equal(y, tfb.fused_chain_per_conv(*args, dyn_extents=ext))
+    _assert_close(y, tfb.fused_chain_plain(*args, dyn_extents=ext),
+                  torch.bfloat16)
+    if ext is not None:
+        assert not y[:, ext[0]:].any() and not y[:, :, ext[1]:].any()
+        assert not y[:, :, :, ext[2]:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,co,entry,ext", PAIR_CASES)
+def test_bf16_pair_tensor_cores_bit_equal_to_per_conv(gen, shape, co, entry,
+                                                      ext):
+    """The bf16 pair on the tensor cores: bitwise equal to the
+    tensor-core per-conv path, against plain, bitwise repeatable."""
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    args = _pair_args(gen, torch.bfloat16, shape, co, entry)
+    name = "fused_pair_dyn" if ext else "fused_pair"
+    before = tfb.launches[name]
+    y = tfb.fused_pair(*args, dyn_extents=ext)
+    again = tfb.fused_pair(*args, dyn_extents=ext)
+    torch.cuda.synchronize()
+    assert tfb.launches[name] == before + 2
+    assert torch.equal(y, again)
+    assert torch.equal(y, tfb.fused_pair_per_conv(*args, dyn_extents=ext))
+    _assert_close(y, tfb.fused_pair_plain(*args, dyn_extents=ext),
+                  torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_conv,co,final,ext", CHAIN_CASES)
+def test_bf16_chain_cuda_cores_bit_equal_to_per_conv_cuda_cores(
+        gen, shape, n_conv, co, final, ext):
+    """The bf16 CUDA-core K8 instance (``_launch(..., tensor_cores=False)``,
+    ``csrc/fused_block.cu``) stays bitwise equal to the CUDA-core per-conv
+    path."""
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    x, s_in, b_in, relu0, convs, final, ds = _chain_args(
+        gen, torch.bfloat16, shape, n_conv, co, final)
+    tfb._check("fused_chain", x, s_in, b_in, convs, final, ds)
+    y = tfb._launch("fused_chain", x, s_in, b_in, relu0, convs, final, ds,
+                    ext, tensor_cores=False)
+    ref = tfb.fused_chain_per_conv(x, s_in, b_in, relu0, convs, final, ds,
+                                   dyn_extents=ext, tensor_cores=False)
+    assert torch.equal(y, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_conv,co,final,ext", CHAIN_CASES[:4])
+def test_fp32_block_keeps_the_cuda_cores(gen, shape, n_conv, co, final, ext):
+    """fp32 K8 takes ``csrc/fused_block.cu`` whatever ``tensor_cores``
+    says, bitwise equal to the fp32 per-conv path."""
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    x, s_in, b_in, relu0, convs, final, ds = _chain_args(
+        gen, torch.float32, shape, n_conv, co, final)
+    y = tfb.fused_chain(x, s_in, b_in, relu0, convs, final, ds,
+                        dyn_extents=ext)
+    cores = tfb._launch("fused_chain", x, s_in, b_in, relu0, convs, final,
+                        ds, ext, tensor_cores=False)
+    assert torch.equal(y, cores)
+    assert torch.equal(y, tfb.fused_chain_per_conv(
+        x, s_in, b_in, relu0, convs, final, ds, dyn_extents=ext))
+    assert tfb.plan(x, n_conv, co, final)[4] == 32
+
+
+@pytest.mark.cuda
+def test_bf16_block_refuses_channels_it_does_not_take(gen):
+    """co outside (16, 32, 64) raises in bf16 (fp32 takes it)."""
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    for dtype, raises in ((torch.bfloat16, True), (torch.float32, False)):
+        x, s_in, b_in, relu0, convs, final, ds = _chain_args(
+            gen, dtype, (1, 3, 5, 33, 16), 2, 48, "relu")
+        if raises:
+            with pytest.raises(ValueError, match="co in"):
+                tfb.fused_chain(x, s_in, b_in, relu0, convs, final, ds)
+        else:
+            tfb.fused_chain(x, s_in, b_in, relu0, convs, final, ds)
 
 
 # --- the narrow-entry conv (K10) ---------------------------------------------

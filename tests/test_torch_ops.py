@@ -10,6 +10,7 @@ kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
 
 import ast
 import concurrent.futures
+import inspect
 import os
 
 import jax
@@ -789,10 +790,11 @@ def _passes_tensor_cores(path):
 
 def test_model_paths_never_pass_tensor_cores():
     """``tensor_cores`` (the private A/B switch of the fused-conv
-    launchers and of ``fused_block``'s per-conv path) is passed only by
-    the ops themselves, ``chip_smoke.py`` and the card tests: nothing under
-    ``models``, ``eval`` or ``train`` passes it, so the model's paths always
-    take the tensor cores in bf16."""
+    launchers, of ``fused_block._launch`` and ``fused_block.plan``, and of
+    ``fused_block``'s per-conv path) is passed only by the ops themselves,
+    ``chip_smoke.py``, ``tools/block_ab.py`` and the card tests: nothing
+    under ``models``, ``eval`` or ``train`` passes it, so the model's paths
+    always take the tensor cores in bf16."""
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(tfc.__file__)))
     files = []
     for sub in ("models", "eval", "train"):
@@ -801,5 +803,8 @@ def test_model_paths_never_pass_tensor_cores():
     assert len(files) > 8
     for path in files:
         assert _passes_tensor_cores(path) == [], path
-    # the scan sees the keyword where it is passed
+    # the scan sees the keyword where it is passed, and fused_block's
+    # launcher and plan take it
     assert _passes_tensor_cores(tfb.__file__)
+    for fn in (tfb._launch, tfb.plan):
+        assert "tensor_cores" in inspect.signature(fn).parameters
