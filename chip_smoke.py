@@ -19,9 +19,17 @@ Phases, each of which fails the run on any error:
    to max-abs-err <= 1e-4 * max|y|; bf16 by cosine >= 0.999 and a norm
    ratio within 1%.  Each shape prints a JSON line with the kernel's, the
    plain version's and one library call's time (``library_ms``:
-   ``F.conv3d`` on the already activated input, or ``F.max_pool3d``; a
-   yardstick only, the port never calls it) and the least time the card
-   could take (``bound_ms``).  The fused conv must give the same output
+   ``F.conv3d`` on the already activated input, or for the pool ``amax``
+   on the window view, with ``F.max_pool3d`` beside it; a yardstick only,
+   the port never calls it) and the least time the card could take
+   (``bound_ms``).  The pool (K5f) is held bit for bit against its plain
+   version; its, ``amax``'s and ``F.max_pool3d``'s times are taken on the
+   device alone (``device_ms``, in turns), their host-clocked times beside
+   them; at the largest pool shape of each configuration NaNs planted at
+   the first and last positions of some windows must give NaN exactly
+   there and the plain version's bits elsewhere (``nan_control``).  One
+   line (``pool_host_path``) gives the host microseconds per call of the
+   pool wrapper's pieces at a 2D-stage shape.  The fused conv must give the same output
    twice (bitwise); in bf16 it runs on the tensor cores and is also held
    against its bf16 CUDA-core instance (``tensor_cores=False``), which
    multiplies the same operands: cosine >= 0.99999, y within 2^-7 *
@@ -43,7 +51,8 @@ Phases, each of which fails the run on any error:
 4. Train kernels (the stats epilogue of K1/K2, K3 and K4 as dgrad and
    wgrad, K5b) against their plain versions at every call shape of one
    train step at each configuration, with the same tolerances (K5b exact,
-   on inputs full of ties); two runs bitwise equal.  Library calls:
+   on inputs full of ties, and again with NaNs planted in them: the plain
+   version's bits, g at every planted NaN); two runs bitwise equal.  Library calls:
    ``aten.convolution_backward`` (dgrad or wgrad on the activated input)
    and the ``F.max_pool3d`` backward; K5b and that backward timed on the
    device alone (``device_ms``).  In bf16 the stats forward, dgrad
@@ -151,22 +160,31 @@ Phases, each of which fails the run on any error:
    0.9999 and norm ratio within 1%; two runs bitwise equal (the weight
    gradient's fixed-order sums); with extents, on inputs random
    everywhere, the garbage beyond them must show in the unmasked plain
-   version.  Each shape line has the kernel's, the plain version's and the
-   library call's time (``F.conv3d`` on the masked input, or
-   ``aten.convolution_backward``'s weight or input gradient) and the bound.
+   version; the forward (the entry kernel, ci = 1 -> co = 16) also
+   bit-equal to the generic forward kernel (``mmf_banded_conv_generic``).
+   Each shape line has the kernel's, the plain version's and the library
+   call's time (``F.conv3d`` on the masked input, or
+   ``aten.convolution_backward``'s weight or input gradient), the kernel's
+   and the library call's on the device alone (``device_ms``) with their
+   host-clocked times beside them, and the bound.
 9. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8; max-abs-err of its fp32 comparisons;
-   per-step times summed over the bf16 B=4 calls, for the tensor-core
+   per-step times summed over the bf16 B=4 calls (for the bucketed paths
+   one bucketed ensemble step of 5 members, where the launches count the
+   serving run's SERVE_IMAGES / SERVE_BATCH steps), for the tensor-core
    kernels (the fused-conv forward and backward, K8) also the bf16
-   CUDA-core instance's (``cuda_cores_ms``); the data gradient of
+   CUDA-core instance's (``cuda_cores_ms``), for K5f ``F.max_pool3d``'s
+   beside ``amax``'s (``library_ms``), for K10's forward the generic
+   kernel's (``generic_ms``); the data gradient of
    K10, off the path, with 0 launches and ``on_main_path`` false), the
    card line, and last the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without CUDA or without the package.
 """
 
+import collections
 import contextlib
 import json
 import subprocess
@@ -634,26 +652,134 @@ def check_bwd_shape(key, n_calls, gen):
                 bitwise_repeatable=same, max_err=err, outputs=st)
 
 
-def check_pool_shape(key, n_calls, gen):
+def same_bits(a, b):
+    """NaN at the same places, and the same bits everywhere else."""
+    import torch
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    na, nb = a.isnan(), b.isnan()
+    return bool(torch.equal(na, nb)) and torch.equal(
+        a.masked_fill(na, 0).view(ints[a.dtype]),
+        b.masked_fill(nb, 0).view(ints[b.dtype]))
+
+
+def plant_nan(x, win, gen, every=64):
+    """A copy of x with NaN at the first position of about one pooled
+    window in ``every`` and at the last position of as many others
+    (channels random); and the pooled positions whose window holds one."""
+    import torch
+    from multimodal_fusion_fpn_torch.ops import pool
+    xn = x.clone()
+    B, Y, X, Z, C = x.shape
+    wy, wx, wz = win
+    Yo, Xo, Zo = Y // wy, X // wx, Z // wz
+    n = max(1, B * Yo * Xo * Zo * C // every)
+    for last in (0, 1):
+        idx = [torch.randint(0, m, (n,), generator=gen, device="cuda")
+               for m in (B, Yo, Xo, Zo, C)]
+        b, oy, ox, oz, c = idx
+        xn[b, oy * wy + last * (wy - 1), ox * wx + last * (wx - 1),
+           oz * wz + last * (wz - 1), c] = float("nan")
+    return xn, pool._windows(xn.isnan(), win).any(dim=(2, 4, 6))
+
+
+def pool_nan_control(x, win, gen):
+    """K5f on x with NaNs planted: NaN exactly at the windows that hold one,
+    the plain version's bits everywhere else."""
+    from multimodal_fusion_fpn_torch.ops import pool
+    xn, want = plant_nan(x, win, gen)
+    y = pool.max_pool3d_cl(xn, win)
+    ok = bool((y.isnan() == want).all()) and same_bits(
+        y, pool.max_pool3d_cl_plain(xn, win))
+    return ok, dict(ok=ok, nan_windows=int(want.sum().item()),
+                    nan_out=int(y.isnan().sum().item()))
+
+
+def check_pool_shape(key, n_calls, gen, nan_control=False):
+    """K5f against its plain version at one call shape: the same bits; the
+    kernel, ``amax`` on the window view (one PyTorch call of the same
+    function, the library call) and ``F.max_pool3d`` timed on the device
+    alone, in turns, with their host-clocked times beside them; with
+    ``nan_control`` also :func:`pool_nan_control`."""
+    import torch
     import torch.nn.functional as F
     from multimodal_fusion_fpn_torch.ops import pool
     name, xs, win, dts = key
     dt = _dtype(dts)
-    import torch
     x = torch.randn(xs, generator=gen, device="cuda").to(dt)
-    y = pool.max_pool3d_cl(x, win)
+    run = lambda: pool.max_pool3d_cl(x, win)
+    y = run()
     ref = pool.max_pool3d_cl_plain(x, win)
-    exact = torch.equal(y, ref)
+    exact = same_bits(y, ref)
     nbytes = (x.numel() + y.numel()) * x.element_size()
     b_ms, b_by = bound(nbytes, float(x.numel()), dts)
+    xw = pool._windows(x, win)
     xc = x.permute(0, 4, 1, 2, 3)
-    return dict(kernel=name, dtype=dts, x=list(xs), window=list(win),
-                calls_per_step=n_calls,
-                kernel_ms=time_ms(lambda: pool.max_pool3d_cl(x, win)),
-                plain_ms=time_ms(lambda: pool.max_pool3d_cl_plain(x, win)),
-                library_ms=time_ms(lambda: F.max_pool3d(xc, win)),
-                bound_ms=b_ms, bound_by=b_by, ok=exact,
-                max_err=(y.float() - ref.float()).abs().max().item())
+    fns = {"kernel": run, "amax": lambda: xw.amax(dim=(2, 4, 6)),
+           "max_pool3d": lambda: F.max_pool3d(xc, win)}
+    dev = {k: [] for k in fns}
+    for k in ("kernel", "amax", "max_pool3d", "max_pool3d", "amax",
+              "kernel"):
+        dev[k].append(device_ms(fns[k]))
+    rec = dict(kernel=name, dtype=dts, x=list(xs), window=list(win),
+               calls_per_step=n_calls, kernel_ms=min(dev["kernel"]),
+               device_ms=min(dev["kernel"]), host_bound_ms=time_ms(run),
+               plain_ms=time_ms(lambda: pool.max_pool3d_cl_plain(x, win)),
+               library="amax", library_ms=min(dev["amax"]),
+               max_pool3d_ms=min(dev["max_pool3d"]),
+               amax_host_ms=time_ms(fns["amax"]),
+               max_pool3d_host_ms=time_ms(fns["max_pool3d"]),
+               bound_ms=b_ms, bound_by=b_by, ok=exact,
+               max_err=(y.float() - ref.float()).abs().max().item())
+    if nan_control:
+        ok_n, rec["nan_control"] = pool_nan_control(x, win, gen)
+        rec["ok"] = exact and ok_n
+    return rec
+
+
+def pool_host_path(reps=2000):
+    """Host microseconds per call of the pool wrapper's pieces at a 2D-stage
+    shape (bf16 (4, 320, 1, 128, 16), window (1, 1, 2)), each timed alone
+    over ``reps`` calls: the whole wrapper, its checks, the output's
+    allocation (``x.new_empty``, and ``torch.empty`` with dtype and device
+    beside it), the current stream's handle (the raw one, and through
+    ``torch.cuda.current_stream`` beside it), the loaded entry point, the
+    ctypes call (the launch) and the call-shape count."""
+    import torch
+    from multimodal_fusion_fpn_torch.ops import pool
+    x = torch.randn(4, 320, 1, 128, 16, device="cuda").bfloat16()
+    win = (1, 1, 2)
+    out = pool.max_pool3d_cl(x, win)
+    fn = pool._fn("pool", "mmf_max_pool3d", pool._FWD_ARGS)
+    shape, dev = tuple(out.shape), x.device
+    counter = collections.Counter()
+
+    def count():
+        counter[("max_pool3d_cl", tuple(x.shape), win, str(x.dtype))] += 1
+    args = (1, x.data_ptr(), out.data_ptr(), 4, 320, 1, 128, 16, 1, 1, 2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pieces = {
+        "wrapper": lambda: pool.max_pool3d_cl(x, win),
+        "checks": lambda: (pool._check(x, "max_pool3d_cl"),
+                           pool._window(win, "max_pool3d_cl")),
+        "new_empty": lambda: x.new_empty(shape),
+        "torch_empty": lambda: torch.empty(shape, dtype=x.dtype, device=dev),
+        "raw_stream": lambda: pool._stream(x),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "entry_point": lambda: pool._fn("pool", "mmf_max_pool3d",
+                                        pool._FWD_ARGS),
+        "ctypes_launch": lambda: fn(*args, stream),
+        "count": count}
+    out_us = {}
+    for name, f in pieces.items():
+        for _ in range(50):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        out_us[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return out_us
 
 
 def tied(shape, gen, dt):
@@ -662,6 +788,26 @@ def tied(shape, gen, dt):
     v = torch.randint(-2, 3, shape, generator=gen, device="cuda").float()
     flip = torch.rand(shape, generator=gen, device="cuda") < 0.5
     return torch.where(flip, -v, v).to(dt)
+
+
+def pool_bwd_nan_control(x, g, win, gen):
+    """K5b on the tied x with NaNs planted, its y from K5f: the plain
+    version's bits, and every planted NaN takes its window's g."""
+    from multimodal_fusion_fpn_torch.ops import pool
+    xn, _ = plant_nan(x, win, gen)
+    y = pool.max_pool3d_cl(xn, win)
+    dx = pool.max_pool3d_cl_bwd(xn, y, g, win)
+    B, Yo, Xo, Zo, C = y.shape
+    wy, wx, wz = win
+    region = (slice(None), slice(0, Yo * wy), slice(0, Xo * wx),
+              slice(0, Zo * wz))
+    gx = g[:, :, None, :, None, :, None].expand(
+        B, Yo, wy, Xo, wx, Zo, wz, C).reshape(B, Yo * wy, Xo * wx, Zo * wz, C)
+    nan = xn[region].isnan()
+    routed = bool((dx[region][nan] == gx[nan]).all())
+    ok = same_bits(dx, pool.max_pool3d_cl_bwd_plain(xn, y, g, win)) and routed
+    return ok, dict(ok=ok, nan_inputs=int(nan.sum().item()),
+                    routed_to_nan=routed)
 
 
 def check_pool_bwd_shape(key, n_calls, gen):
@@ -678,8 +824,9 @@ def check_pool_bwd_shape(key, n_calls, gen):
     run = lambda: pool.max_pool3d_cl_bwd(x, y, g, win)
     dx = run()
     ref = pool.max_pool3d_cl_bwd_plain(x, y, g, win)
-    exact = torch.equal(dx, ref)
+    exact = same_bits(dx, ref)
     ties = int((dx != 0).sum().item()) > int((g != 0).sum().item())
+    ok_n, nan_rec = pool_bwd_nan_control(x, g, win, gen)
     xc = x.permute(0, 4, 1, 2, 3)
     _, idx = F.max_pool3d(xc, win, return_indices=True)
     gc = g.permute(0, 4, 1, 2, 3)
@@ -694,7 +841,8 @@ def check_pool_bwd_shape(key, n_calls, gen):
                 plain_ms=time_ms(
                     lambda: pool.max_pool3d_cl_bwd_plain(x, y, g, win)),
                 library_ms=device_ms(lib), bound_ms=b_ms, bound_by=b_by,
-                ok=exact and ties, ties_present=ties,
+                ok=exact and ties and ok_n, ties_present=ties,
+                nan_control=nan_rec,
                 max_err=(dx.float() - ref.float()).abs().max().item())
 
 
@@ -754,17 +902,27 @@ def check_banded_shape(key, n_calls, gen):
     y = run()
     ok, stats = compare_bucketed(y, plain(), dt)
     same = torch.equal(y, run())
+    extra = {}
+    if name in ("banded_conv", "banded_conv_dyn"):
+        # the entry kernel against the generic kernel: the same bits
+        generic = lambda: bc._run(x, w, ext, "mmf_banded_conv_generic")
+        extra = dict(generic_equal=same_bits(y, generic()),
+                     generic_ms=device_ms(generic))
     nbytes *= x.element_size()
     flops = 2.0 * n_pos * taps * ws[3] * ws[4]
     b_ms, b_by = bound(nbytes, flops, dts)
+    k_ms = device_ms(run)
     return dict(kernel=name, dtype=dts, x=list(xs), w=list(ws),
                 extents=None if ext is None else list(ext),
                 calls_per_step=n_calls, flop=flops, bytes=nbytes,
                 bound_cuda_cores_ms=cuda_core_ms(nbytes, flops),
-                kernel_ms=time_ms(run), plain_ms=time_ms(plain),
-                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
-                ok=ok and same and garbage_shows, bitwise_repeatable=same,
-                garbage_shows=garbage_shows, **stats)
+                kernel_ms=k_ms, device_ms=k_ms, host_bound_ms=time_ms(run),
+                plain_ms=time_ms(plain), library_ms=device_ms(lib),
+                library_host_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                ok=(ok and same and garbage_shows
+                    and extra.get("generic_equal", True)),
+                bitwise_repeatable=same, garbage_shows=garbage_shows,
+                **extra, **stats)
 
 
 def hmma_counts(lib):
@@ -1709,9 +1867,13 @@ def main() -> int:
         for key, n in sorted(conv_calls.items(), key=str):
             records[(tag, key)] = check_conv_shape(key, MEMBERS * n, gen)
             emit(records[(tag, key)])
+        largest = max(pool_calls, key=lambda k: int(np.prod(k[1])))
         for key, n in sorted(pool_calls.items(), key=str):
-            records[(tag, key)] = check_pool_shape(key, MEMBERS * n, gen)
+            records[(tag, key)] = check_pool_shape(
+                key, MEMBERS * n, gen, nan_control=key == largest)
             emit(records[(tag, key)])
+    emit({"phase": "pool_host_path", "us_per_call": pool_host_path(),
+          "card": card})
 
     # --- 3. ensemble, end to end -----------------------------------------
     main_launches = {}
@@ -2103,6 +2265,11 @@ def main() -> int:
                 per_conv_ms=per_step(main, "per_conv_ms"),
                 per_conv_cuda_cores_ms=per_step(main,
                                                 "per_conv_cuda_cores_ms"))
+        if main and "max_pool3d_ms" in main[0]:
+            summary[-1].update(library="amax",
+                               max_pool3d_ms=per_step(main, "max_pool3d_ms"))
+        if main and "generic_ms" in main[0]:
+            summary[-1]["generic_ms"] = per_step(main, "generic_ms")
         if name in TC_ROWS:
             summary[-1].update(
                 tpu_rows=TC_ROWS[name],

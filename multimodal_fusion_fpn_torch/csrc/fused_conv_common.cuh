@@ -12,6 +12,22 @@
 
 namespace mmf {
 
+// n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1; fast_div
+// computes m and s on the host).
+struct FastDiv {
+  uint32_t m;
+  int s;
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((uint32_t)n, m) + (uint32_t)n) >> s);
+  }
+};
+inline FastDiv fast_div(uint32_t d) {
+  int s = 0;
+  while ((1ull << s) < d) ++s;
+  const uint64_t m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+  return FastDiv{(uint32_t)m, s};
+}
+
 constexpr int kThreads = 256;
 constexpr int kTZ = 32;    // z positions per tile (one warp)
 constexpr int kTYX = 8;    // rows (y, x) per tile of the forward / dgrad kernels

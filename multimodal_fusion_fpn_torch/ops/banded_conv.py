@@ -24,7 +24,14 @@ layout work that a contiguous channels-last tensor does not need.  The
 kernels take fp32 and bf16, 1 <= ci <= 64 and co in {1, 16, 32, 64}: the
 model's ci = 1 entry convs and 1x1x1 downsamples (co 16) and their data
 gradient (ci 16 -> co 1).  They are bound by memory on the H100 (see the
-.cu header).  Launches are counted as ``launches["banded_conv"]``,
+.cu header).  The forward has two kernels: the entry kernel, for ci = 1 ->
+co = 16 with at most 9 taps (every forward the model launches), stages x
+by tiles of whole output rows in shared memory and stores whole 128-byte
+lines; the generic kernel, one thread per output position, runs the rest
+(the data gradient among them).  Both add the taps in the same order and
+give the same bits (short of a partial sum that underflows to -0, or a
+weight that is not finite, at a tap outside the volume: the .cu note).
+Launches are counted as ``launches["banded_conv"]``,
 ``"banded_conv_dyn"`` (with extents), ``"banded_conv_wgrad"`` and
 ``"banded_conv_dgrad"``; ``calls`` keeps (kernel, x shape, w shape, dtype,
 extents) per launch, x being g for the data gradient and w the kernel the
@@ -143,13 +150,16 @@ def _count(name, x, w, ext):
     calls[(name, tuple(x.shape), tuple(w.shape), str(x.dtype), ext)] += 1
 
 
-def _launch(x, w, ext, name):
-    """The forward kernel on CUDA tensors, counted as ``name``."""
+def _run(x, w, ext, entry="mmf_banded_conv"):
+    """The forward on CUDA tensors through the C entry point ``entry``:
+    ``mmf_banded_conv`` (the entry kernel for ci = 1 -> co = 16, else the
+    generic one) or ``mmf_banded_conv_generic`` (the generic kernel on any
+    call, which only comparisons run).  Not counted."""
     B, Y, X, Z, ci = x.shape
     kY, kX, kz, _, co = w.shape
     out = torch.empty((B, Y, X, Z, co), dtype=x.dtype, device=x.device)
     dyn = None if ext is None else (ctypes.c_int * 3)(*ext)
-    fn = _fn("banded_conv", "mmf_banded_conv",
+    fn = _fn("banded_conv", entry,
              [_INT] * 4 + [_PTR] * 4 + [_INT] * 6 + [_PTR])
     rc = fn(_DTYPES[x.dtype], kY, kX, kz, x.data_ptr(), w.data_ptr(),
             out.data_ptr(), None if dyn is None else ctypes.addressof(dyn), B,
@@ -157,6 +167,12 @@ def _launch(x, w, ext, name):
     if rc != 0:
         raise RuntimeError(f"banded_conv: kernel launch failed, CUDA error "
                            f"{rc}")
+    return out
+
+
+def _launch(x, w, ext, name):
+    """The forward kernel on CUDA tensors, counted as ``name``."""
+    out = _run(x, w, ext)
     _count(name, x, w, ext)
     return out
 

@@ -305,7 +305,11 @@ def _ptr(t):
 
 
 def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of x's device's current stream: what
+    ``torch.cuda.current_stream(x.device).cuda_stream`` gives, without
+    building a Stream object (0.24 against 3.0 us of host time per call on
+    the H100 machine, chip_smoke.py's ``pool_host_path``)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def _work(nbytes, device):

@@ -18,15 +18,22 @@ Source note.  The CUDA kernels (``csrc/pool.cu``) replace the TPU kernels
 (``_bwd_row_kernel`` / ``_bwd_kernel``, K5b), which pool the packed (bs, nb)
 layout.  On channels-last data that is a plain max pool.  Both are bound by
 memory on the H100 (each byte read once, each output byte written once).
-The forward runs one thread per output element, consecutive threads on
-consecutive channels, so every read is coalesced.  The backward runs one
-thread per pooled position and 8 channels (16-byte vectors in bf16), over a
-grid of pooled rows with 32-bit offsets inside a row; it loads ``y`` and
-``g`` once, compares the window's inputs lane by lane and zeroes the
-region beyond the floor-sized pool itself; C % 8 != 0 takes its scalar
-lanes.  The first-max backward stays plain PyTorch, as the JAX package
-leaves it to XLA.  2D maps (B, H, W, C) pool as (B, H, 1, W, C)
-with window (wH, 1, wW).
+Both run over a grid of pooled rows with 32-bit offsets inside a row, each
+thread on 8 channels (16-byte vectors in bf16); C % 8 != 0 takes their
+scalar lanes.  The forward gives a thread 2 or 4 consecutive pooled z
+positions and loads all their window inputs before it reduces them, in the
+storage type; the main path's windows are compiled instances.  The
+backward loads ``y`` and ``g`` once, compares the window's inputs lane by
+lane and zeroes the region beyond the floor-sized pool itself.  The
+first-max backward stays plain PyTorch, as the JAX package leaves it to
+XLA.  2D maps (B, H, W, C) pool as (B, H, 1, W, C) with window (wH, 1, wW).
+
+NaN.  A window that holds a NaN pools to NaN, as ``jnp.maximum`` and
+``amax`` give it (the kernel returns the type's canonical NaN).  The
+all-ties backward gives the cotangent to every NaN input of a window whose
+output is NaN, as the JAX backward's bit compare does wherever the
+window's NaNs share one bit pattern; the first-max backward's NaN rule is
+``F.max_pool3d``'s and is not held against JAX.
 """
 
 import collections
@@ -36,7 +43,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from multimodal_fusion_fpn_torch.ops import _build
+from multimodal_fusion_fpn_torch.ops.fused_conv import _fn, _stream
 
 # Kernel launches since the last reset, and the call shapes they ran at:
 # (kernel, x shape, window, dtype).
@@ -45,6 +52,9 @@ calls: collections.Counter = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# ctypes signatures of the C entry points
+_FWD_ARGS = [_INT] + [_PTR] * 2 + [_INT] * 8 + [_PTR]
+_BWD_ARGS = [_INT] + [_PTR] * 4 + [_INT] * 8 + [_PTR]
 
 
 def _windows(x, window):
@@ -73,12 +83,13 @@ def _max_pool_plain_fwd(x, window):
 def max_pool3d_cl_bwd_plain(x: torch.Tensor, y: torch.Tensor,
                             g: torch.Tensor,
                             window: Sequence[int]) -> torch.Tensor:
-    """The plain PyTorch version of :func:`max_pool3d_cl_bwd` (all ties)."""
+    """The plain PyTorch version of :func:`max_pool3d_cl_bwd` (all ties;
+    a NaN output's cotangent goes to every NaN input of its window)."""
     B, Yo, Xo, Zo, C = y.shape
     at = lambda t: t.reshape(B, Yo, 1, Xo, 1, Zo, 1, C)
-    gb = at(g.to(x.dtype))
-    return _scatter(x, torch.where(_windows(x, window) == at(y), gb,
-                                   gb.new_zeros(())))
+    gb, yb, xw = at(g.to(x.dtype)), at(y), _windows(x, window)
+    hit = (xw == yb) | (xw.isnan() & yb.isnan())
+    return _scatter(x, torch.where(hit, gb, gb.new_zeros(())))
 
 
 def max_pool3d_cl_bwd_first(x: torch.Tensor, g: torch.Tensor,
@@ -112,14 +123,10 @@ def _launch_fwd(x, window):
     _check(x, "max_pool3d_cl")
     wy, wx, wz = _window(window, "max_pool3d_cl")
     B, Y, X, Z, C = x.shape
-    out = torch.empty((B, Y // wy, X // wx, Z // wz, C), dtype=x.dtype,
-                      device=x.device)
-    fn = _build.load("pool").mmf_max_pool3d
-    if fn.argtypes is None:
-        fn.argtypes = [_INT] + [_PTR] * 2 + [_INT] * 8 + [_PTR]
-        fn.restype = _INT
-    rc = fn(_DTYPES[x.dtype], x.data_ptr(), out.data_ptr(), B, Y, X, Z, C,
-            wy, wx, wz, torch.cuda.current_stream(x.device).cuda_stream)
+    out = x.new_empty((B, Y // wy, X // wx, Z // wz, C))
+    rc = _fn("pool", "mmf_max_pool3d", _FWD_ARGS)(
+        _DTYPES[x.dtype], x.data_ptr(), out.data_ptr(), B, Y, X, Z, C, wy, wx,
+        wz, _stream(x))
     if rc != 0:
         raise RuntimeError(
             f"max_pool3d_cl: kernel launch failed, CUDA error {rc}")
@@ -150,13 +157,9 @@ def max_pool3d_cl_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                 f"{shape} tensor on {x.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     dx = torch.empty_like(x)
-    fn = _build.load("pool").mmf_max_pool3d_bwd
-    if fn.argtypes is None:
-        fn.argtypes = [_INT] + [_PTR] * 4 + [_INT] * 8 + [_PTR]
-        fn.restype = _INT
-    rc = fn(_DTYPES[x.dtype], x.data_ptr(), y.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), B, Y, X, Z, C, wy, wx, wz,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _fn("pool", "mmf_max_pool3d_bwd", _BWD_ARGS)(
+        _DTYPES[x.dtype], x.data_ptr(), y.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), B, Y, X, Z, C, wy, wx, wz, _stream(x))
     if rc != 0:
         raise RuntimeError(
             f"max_pool3d_cl_bwd: kernel launch failed, CUDA error {rc}")

@@ -486,6 +486,86 @@ def test_max_pool_first_max_backward_matches_torch(gen):
     assert torch.equal(xg.grad, xt.grad.permute(0, 2, 3, 4, 1))
 
 
+_INTS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _same_bits(a, b):
+    """NaN at the same places (``equal_nan``), the same bits elsewhere."""
+    na, nb = a.isnan(), b.isnan()
+    return bool(torch.equal(na, nb)) and torch.equal(
+        a.masked_fill(na, 0).view(_INTS[a.dtype]),
+        b.masked_fill(nb, 0).view(_INTS[b.dtype]))
+
+
+def _at_offset(x, offset):
+    """x copied into a buffer ``offset`` elements in (a storage offset that
+    is not 16-byte aligned for offset 1)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    v = buf[offset:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+def _planted(gen, shape, window, dtype, offset):
+    """randn with NaN at the first position of two windows and at the last
+    position of two others, and +inf and -inf elsewhere."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    B, Y, X, Z, C = shape
+    wy, wx, wz = window
+    Yo, Xo, Zo = Y // wy, X // wx, Z // wz
+    nan, inf = float("nan"), float("inf")
+    x[0, 0, 0, 0, 0] = nan                                   # first, window 0
+    x[B - 1, 0, 0, (Zo - 1) * wz, C - 1] = nan               # first
+    x[0, wy - 1, wx - 1, wz - 1, C // 2] = nan               # last, window 0
+    x[B - 1, Yo * wy - 1, Xo * wx - 1, Zo * wz - 1, C - 1] = nan  # last
+    x[0, 0, 0, wz * (Zo // 2), 1] = inf
+    x[B - 1, Yo * wy - 1, 0, 0, 2] = -inf
+    return _at_offset(x.to(dtype), offset)
+
+
+# (x shape, window, storage offset in elements): every main-path window at
+# sizes the windows do not divide (floor remainders on every axis), C = 12
+# (the scalar lanes), storage offsets that are not 16-byte aligned (the
+# scalar lanes) and a window with no compiled instance
+POOL_NAN_CASES = [((2, 5, 9, 63, 16), (1, 2, 2), 0),
+                  ((2, 5, 9, 63, 16), (2, 2, 2), 0),
+                  ((2, 5, 1, 63, 16), (1, 1, 2), 0),
+                  ((2, 5, 1, 63, 16), (2, 1, 2), 0),
+                  ((1, 7, 5, 33, 12), (2, 2, 2), 0),
+                  ((2, 5, 9, 63, 16), (1, 2, 2), 1),
+                  ((1, 5, 3, 17, 72), (2, 2, 2), 1),
+                  ((2, 4, 6, 9, 24), (3, 4, 4), 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,window,offset", POOL_NAN_CASES)
+def test_max_pool_kernels_keep_nan_and_inf(gen, shape, window, offset,
+                                           dtype):
+    """K5f: NaN wherever a window holds one (as jnp.maximum and amax give
+    it), the plain version's bits elsewhere, +-inf kept; K5b on that
+    output: the plain version's bits, so every NaN input of a NaN window
+    takes the window's g."""
+    x = _planted(gen, shape, window, dtype, offset)
+    before = tpool.launches["max_pool3d_cl"]
+    y = tpool.max_pool3d_cl(x, window)
+    torch.cuda.synchronize()
+    assert tpool.launches["max_pool3d_cl"] == before + 1
+    ref = tpool.max_pool3d_cl_plain(x, window)
+    assert y.isnan().sum() >= 3 and y.isinf().any()
+    assert _same_bits(y, ref)
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    dx = tpool.max_pool3d_cl_bwd(x, y, g, window)
+    assert _same_bits(dx, tpool.max_pool3d_cl_bwd_plain(x, y, g, window))
+    B, Yo, Xo, Zo, C = y.shape
+    wy, wx, wz = window
+    gx = g[:, :, None, :, None, :, None].expand(
+        B, Yo, wy, Xo, wx, Zo, wz, C).reshape(B, Yo * wy, Xo * wx, Zo * wz, C)
+    region = dx[:, :Yo * wy, :Xo * wx, :Zo * wz]
+    nan = x[:, :Yo * wy, :Xo * wx, :Zo * wz].isnan()
+    assert nan.sum() >= 4 and torch.equal(region[nan], gx[nan])
+
+
 # --- eval under exact shape bucketing: the extents instance (K7) -----------
 
 # (x shape, taps, z stride, true extents (yt, xt, zt)); the input is random
@@ -884,6 +964,41 @@ def test_banded_conv_extents_kernel_matches_plain(gen, shape, taps, co, ext,
                        tbc.banded_conv(x, w))
     _assert_close(tbc.banded_conv_wgrad(x, g, w.shape, ext),
                   tbc.banded_conv_wgrad_plain(x, g, w.shape, ext), dtype)
+
+
+# (x shape, taps, extents, storage offset): Z above the entry kernel's z
+# tile (1024) and no multiple of it, Z no multiple of 8 (scalar staging),
+# extents that end inside a tile, the X = 1 view of the 2D stage, both tap
+# sets of the 3D stage, and an x that is not 16-byte aligned
+ENTRY_CASES = [((1, 2, 3, 1100, 1), (1, 3, 3), None, 0),
+               ((1, 2, 3, 1096, 1), (1, 1, 1), (2, 2, 1090), 0),
+               ((2, 5, 13, 45, 1), (1, 3, 3), None, 0),
+               ((2, 5, 13, 48, 1), (1, 3, 3), (4, 9, 31), 0),
+               ((2, 5, 13, 48, 1), (1, 1, 1), (5, 11, 44), 0),
+               ((1, 40, 1, 128, 1), (1, 1, 3), (37, 1, 101), 0),
+               ((1, 40, 1, 128, 1), (1, 1, 1), None, 0),
+               ((2, 5, 13, 48, 1), (1, 3, 3), None, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,taps,ext,offset", ENTRY_CASES)
+def test_banded_conv_entry_kernel_matches_generic_and_plain(
+        gen, shape, taps, ext, offset, dtype):
+    """K10's entry kernel (ci = 1 -> co = 16): the generic forward kernel's
+    bits (the same fp32 sum in the same tap order), the plain version
+    within the tolerance, and two runs bitwise equal."""
+    from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
+    x, w, _ = _banded_args(gen, shape, taps, 16, dtype)
+    x = _at_offset(x, offset)
+    name = "banded_conv" if ext is None else "banded_conv_dyn"
+    before = tbc.launches[name]
+    y = tbc.banded_conv(x, w, dyn_extents=ext)
+    torch.cuda.synchronize()
+    assert tbc.launches[name] == before + 1
+    assert _same_bits(y, tbc._run(x, w, ext, "mmf_banded_conv_generic"))
+    _assert_close(y, tbc.banded_conv_plain(x, w, ext), dtype)
+    assert torch.equal(y, tbc.banded_conv(x, w, dyn_extents=ext))
 
 
 @pytest.mark.cuda

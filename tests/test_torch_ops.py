@@ -510,9 +510,12 @@ def test_fused_conv_bwd_launch_checks(bad, match):
                                  (2, 1, 2)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_max_pool_matches_jax_pool_packed(win, dtype):
+    """Exact, NaN included: a window that holds a NaN pools to NaN, as
+    ``jnp.maximum`` in the Pallas kernel gives it (``_plant_nan``)."""
     rng = np.random.default_rng(sum(win))
     X = 1 if win[1] == 1 else 6
-    x = rng.normal(size=(2, 4, X, 32, 16)).astype(np.float32)
+    x = _plant_nan(rng.normal(size=(2, 4, X, 32, 16)).astype(np.float32),
+                   win)
     bs = 8
     xj = jnp.asarray(x, dtype)
     out = jpool.pool_packed(jfc.pack(xj, bs), X, 32 // bs, bs, win)
@@ -521,6 +524,19 @@ def test_max_pool_matches_jax_pool_packed(win, dtype):
     tdt = getattr(torch, dtype)
     got = tpool.max_pool3d_cl(torch.from_numpy(x).to(tdt), win)
     np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+def _plant_nan(x, win):
+    """x with NaN at the first and the last position of window 0 (channel
+    0) and at the last position of the last window (channel 5); the other
+    windows keep their values."""
+    wy, wx, wz = win
+    B, Y, X, Z, C = x.shape
+    x = x.copy()
+    x[0, 0, 0, 0, 0] = np.nan
+    x[0, wy - 1, wx - 1, wz - 1, 0] = np.nan
+    x[B - 1, Y // wy * wy - 1, X // wx * wx - 1, Z // wz * wz - 1, 5] = np.nan
+    return x
 
 
 def _tied(shape, seed, signed_zero=True):
@@ -549,11 +565,13 @@ def _port_pool_vjp(x, g, win, first_max=False):
                                  (2, 1, 2)])
 def test_max_pool_bwd_matches_jax_pool_packed_on_ties(win):
     """K5b's rule: the Pallas pool's backward (``_bwd_row_kernel`` /
-    ``_bwd_kernel``, interpreted off-TPU) gives g to every tied max; the
-    port's plain backward and its Function agree exactly.  (Signed zeros:
-    next test.)"""
+    ``_bwd_kernel``, interpreted off-TPU) gives g to every tied max, and
+    to every NaN input of a window whose max is NaN (its bit compare, with
+    the NaNs of one bit pattern; ``_plant_nan``); the port's plain
+    backward and its Function agree exactly.  (Signed zeros: next test.)"""
     X = 1 if win[1] == 1 else 6
-    x = _tied((2, 4, X, 32, 16), seed=sum(win), signed_zero=False)
+    x = _plant_nan(_tied((2, 4, X, 32, 16), seed=sum(win),
+                         signed_zero=False), win)
     bs, nb = 8, 4
     f = lambda v: jpool.pool_packed(jfc.pack(v, bs), X, nb, bs, win)
     y, pull = jax.vjp(f, jnp.asarray(x))
@@ -562,6 +580,7 @@ def test_max_pool_bwd_matches_jax_pool_packed_on_ties(win):
     assert np.count_nonzero(ref) > np.count_nonzero(g)  # ties occur
     g_cl = np.asarray(jfc.unpack(jnp.asarray(g), X // win[1], nb,
                                  bs // win[2]))
+    assert (ref[np.isnan(x)] != 0).all()  # every NaN input takes g
     for got in _port_pool_vjp(x, g_cl, win):
         np.testing.assert_array_equal(got, ref)
 
