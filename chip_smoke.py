@@ -167,7 +167,31 @@ Phases, each of which fails the run on any error:
    ``aten.convolution_backward``'s weight or input gradient), the kernel's
    and the library call's on the device alone (``device_ms``) with their
    host-clocked times beside them, and the bound.
-9. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+9. The rest of the zoo (``zoo_phase``), at the ini widths and phase 3's
+   crop shapes, seeded weights as in phase 3.  (a) FPN, the model
+   ``run.sh`` trains and serves, fed no en-face map: the 5-member
+   ensemble at bf16 B=4 and fp32 B=1, kernel path against
+   ``kernels=False`` with phase 3's tolerances and images/s, each kernel's
+   launches exactly MEMBERS times its per-member count (ZOO_PER_MEMBER)
+   and every other kernel's 0; one member's small input against the CPU;
+   one train step per configuration checked as in phase 5 (the loss, the
+   running stats, SGD's step and ``compare_grads`` against the
+   higher-precision plain step), with the train kernels' launches; and
+   bucketed serving through ``eval.harness.evaluate`` at phase 6's two
+   true shapes (bf16: SERVE_IMAGES images, ``eval_batch`` 4; fp32: one
+   image of each shape, ``eval_batch`` 1) against the same run
+   unbucketed, each dispatch's prediction within phase 6's bounds, with
+   the extents instances' launches and the bucketed run's images/s.  (b)
+   One member of FPN2D, FPNLateFusion ('2d_max') and FPNClassification
+   (3 classes) at both configurations: kernel path against plain with
+   phase 3's tolerances on the prediction minus its value at zero logits,
+   the launches per member, the small input against the CPU; FPN2D and
+   FPNLateFusion also one bucketed batch (phase 6's shapes) against the
+   unpadded one (phase 6's bounds; FPN2D's prediction at the mask's
+   shape, uncropped).  (c) Each Regression variant, bf16 B=4 on the
+   kernel path: the sigmoid of its output equals its base model's
+   prediction bit for bit.
+10. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8; max-abs-err of its fp32 comparisons;
@@ -301,6 +325,28 @@ K8_PER_MEMBER = {"chain": {"fused_chain": 5, "fused_conv": 23,
                  "pair": {"fused_pair": 5, "fused_conv": 25,
                           "fused_conv_ky3": 6,
                           "banded_conv": K10_PER_MEMBER}}
+
+# phase 9: the rest of the zoo.  Kernel launches per member forward at the
+# ini widths (the CPU routing test, tests/test_torch_model.py, counts the
+# same wrapper calls): FPN is the hybrid's 3D half, FPN2D its 2D half,
+# FPNLateFusion both, FPNClassification the 3D encoder alone; every other
+# kernel launches 0 times in eval
+ZOO_PER_MEMBER = {
+    "FPN": {"fused_conv": 22, "fused_conv_ky3": 3, "max_pool3d_cl": 4,
+            "banded_conv": 2},
+    "FPN2D": {"fused_conv": 13, "fused_conv_ky3": 3, "max_pool3d_cl": 4,
+              "banded_conv": 2},
+    "FPNLateFusion": {"fused_conv": 35, "fused_conv_ky3": 6,
+                      "max_pool3d_cl": 8, "banded_conv": 4},
+    "FPNClassification": {"fused_conv": 13, "fused_conv_ky3": 3,
+                          "max_pool3d_cl": 4, "banded_conv": 2}}
+# FPNClassification with one class would softmax to 1 everywhere
+ZOO_CLASSES = {"FPNClassification": 3}
+ZOO_REGRESSION = (("FPNRegression", "FPN"),
+                  ("FPNHybridFusionRegression", "FPNHybridFusion"),
+                  ("FPNLateFusionRegression", "FPNLateFusion"))
+# the images of phase 9's fp32 serving check (one of each true shape)
+ZOO_FP32_SERVE_IMAGES = 2
 
 
 def emit(obj):
@@ -1787,6 +1833,303 @@ def compare_whole(a, b):
     return ok and cos >= 0.9999 and abs(ratio - 1) <= 1e-3, out
 
 
+def zoo_cfg(name):
+    return SimpleNamespace(model=name, crop="relative_2d_max",
+                           fusion_modality="slo",
+                           number_of_outputs=ZOO_CLASSES.get(name, 1))
+
+
+def zoo_centred(name, pred):
+    """A prediction minus its value at zero logits (the sigmoid's 0.5, the
+    softmax's 1 / n), so a cosine compares what the model computed."""
+    return pred.float() - 1.0 / ZOO_CLASSES.get(name, 2)
+
+
+def zoo_batch(name, B, seed, yzx=OCT_YZX, slo_hw=SLO_HW):
+    """``make_batch`` on the card, without the en-face map for the models
+    that take none (FPN must not need it) and without the mask where the
+    model does not read it."""
+    import torch
+    b = make_batch(B, seed, yzx, slo_hw)
+    if name in ("FPN", "FPNRegression", "FPNClassification"):
+        del b["slo"]
+    if name != "FPN2D":
+        del b["mask"]
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def zoo_launches_ok(name, launches, n):
+    """Every kernel of ``name``'s eval path launched ``n`` times its
+    per-member count, every other kernel not at all."""
+    want = ZOO_PER_MEMBER[name]
+    return all(launches[k] == n * want.get(k, 0) for k in launches)
+
+
+def zoo_eval(name, tag, dt, B, model, sds, card, timed=False):
+    """Phase 9 (a) and (b): the ensemble of ``sds`` (one member or
+    MEMBERS) on the kernel path against ``kernels=False`` at the crop
+    shapes, with phase 3's tolerances, the launches counted in a run of
+    the kernel path alone, and with ``timed`` the images/s of both paths.
+    (ok, record)."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.eval.ensemble import \
+        make_ensemble_eval_step
+    step = make_ensemble_eval_step(model, sds)
+    batch = zoo_batch(name, B, 1)
+    step(batch, kernels=False)
+    step(batch)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    pred = step(batch)["prediction"]
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    ref = step(batch, kernels=False)["prediction"]
+    torch.cuda.synchronize()
+    ok, stats = compare(zoo_centred(name, pred), zoo_centred(name, ref), dt)
+    shape = ((B, ZOO_CLASSES[name]) if name in ZOO_CLASSES
+             else (B, 1, OCT_YZX[0], 1, OCT_YZX[2]))
+    ok &= tuple(pred.shape) == shape
+    counted = zoo_launches_ok(name, launches, len(sds))
+    rec = {"phase": "zoo_e2e", "model": name, "config": tag,
+           "members": len(sds), "batch": B,
+           "prediction_shape": list(pred.shape), "ok": ok,
+           "launches": launches, "launches_match": counted, "card": card,
+           **stats}
+    if timed:
+        times, busy = timed_paths(
+            lambda kernels: step(batch, kernels=kernels))
+        rec.update(timing_record(times, busy, B))
+    return ok and counted, rec
+
+
+def zoo_small_vs_cpu(name, sd):
+    """One member on the small input, fp32, the card against the CPU's
+    plain path (phase 3's check)."""
+    import torch
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    cfg = zoo_cfg(name)
+    batch = {k: v.cpu() for k, v in
+             zoo_batch(name, 1, 2, (8, 64, 32), (80, 32)).items()}
+    with torch.inference_mode():
+        card = build_model(cfg)
+        card.load_state_dict(sd)
+        got = card({k: v.cuda() for k, v in batch.items()})["prediction"]
+        cpu = build_model(cfg, device="cpu")
+        cpu.load_state_dict(sd)
+        want = cpu(batch)["prediction"]
+    return compare(got.cpu(), want, torch.float32)
+
+
+def zoo_bucketed(name, tag, dt, B, model, sd):
+    """Phase 9 (b): one bucketed batch (phase 6's shapes, both inputs
+    padded) against the unpadded one, one member on the kernel path: fp32
+    max-abs-err <= 1e-5 * max|y|, bf16 cosine >= 0.9999 and norm ratio
+    within 1%; FPN2D's prediction at the mask's shape, uncropped."""
+    import torch
+    from multimodal_fusion_fpn_torch.eval.harness import bucket_pad
+    from multimodal_fusion_fpn_torch.eval.ensemble import \
+        make_ensemble_eval_step
+    step = make_ensemble_eval_step(model, [sd])
+    b = serving_batch(B, 6)
+    unpadded = {k: b[k] for k in ("image", "slo", "mask")}
+    padded = bucket_pad(unpadded, BUCKET)
+    Y, X = SERVE_OCT[0][0], SERVE_OCT[0][2]
+    got = step(padded)["prediction"]
+    ref = step(unpadded)["prediction"]
+    torch.cuda.synchronize()
+    same_shape = name != "FPN2D" or got.shape == ref.shape
+    ok, st = compare_bucketed(zoo_centred(name, got[:, :, :Y, :, :X]),
+                              zoo_centred(name, ref), dt)
+    return ok and same_shape, {
+        "phase": "zoo_bucketed", "model": name, "config": tag, "batch": B,
+        "padded_image": list(padded["image"].shape),
+        "padded_slo": list(padded["slo"].shape),
+        "prediction_shape": list(got.shape), "ok": ok and same_shape, **st}
+
+
+def zoo_serving(step, dt, n_images, eval_batch, card):
+    """Phase 9 (a): FPN's bucketed serving through ``evaluate`` (phase 6's
+    two true shapes, no en-face map in the batches) against the same run
+    unbucketed: each dispatch's prediction, cropped, within phase 6's
+    bounds, the same rows; the launches of the bucketed run; its images/s
+    (best of two).  (ok, record)."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.eval.harness import evaluate
+    batches = []
+    for i in range(n_images):
+        b = serving_batch(1, 100 + i, shape=i * 2 // n_images)
+        del b["slo"]
+        b["FileSetId"] = [f"image{i}"]
+        batches.append(b)
+    preds = []
+
+    def run(bucket):
+        preds.clear()
+
+        def capture(b, sp=None):
+            out = step(b, sp)
+            preds.append(out["prediction"])
+            return out
+        t0 = time.time()
+        rows, _ = evaluate(capture, batches, hrf_metrics(), bucket,
+                           eval_batch)
+        torch.cuda.synchronize()
+        return time.time() - t0, rows, list(preds)
+
+    run(BUCKET)
+    ops.reset_launches()
+    _, rows_b, got = run(BUCKET)
+    launches = ops.kernel_launches()
+    _, rows_u, ref = run(0)
+    ok, worst = len(got) == len(ref), None
+    for g, r in zip(got, ref):
+        o, st = compare_bucketed(g[:, :, :r.shape[2], :, :r.shape[4]].float()
+                                 - 0.5, r.float() - 0.5, dt)
+        ok &= o
+        if worst is None or not o or st["cos"] < worst["cos"]:
+            worst = st
+    same_rows = [r["FileSetId"] for r in rows_b] == [
+        r["FileSetId"] for r in rows_u]
+    seconds = [run(BUCKET)[0] for _ in range(2)]
+    steps = 2 * -(-(n_images // 2) // eval_batch)   # two true shapes
+    counted = (launches["fused_conv_dyn"] > 0
+               and launches["max_pool3d_cl"] > 0
+               and launches["banded_conv_dyn"] == steps * MEMBERS * 2
+               and launches["fused_conv"] == launches["banded_conv"] == 0)
+    return ok and same_rows and counted, {
+        "phase": "zoo_serving", "model": "FPN", "dtype": str(dt),
+        "images": n_images, "eval_batch": eval_batch, "bucket": BUCKET,
+        "ok": ok and same_rows, "launches": launches,
+        "launches_match": counted, "worst_dispatch": worst,
+        "img_per_s_kernels": n_images / min(seconds),
+        "seconds_kernels_runs": seconds,
+        "rows": [[r["FileSetId"], r["Dice"], r["Hausdorff"]]
+                 for r in rows_b], "card": card}
+
+
+def zoo_train(cfg, tag, dt, B, sd, card):
+    """Phase 9 (a): one FPN train step on the kernel path against
+    ``kernels=False`` and the higher-precision plain step, checked as in
+    phase 5 (the loss, the running stats, SGD's step, ``compare_grads``),
+    with the train kernels' launches.  (ok, record)."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    ref_dtype = {torch.bfloat16: torch.float32,
+                 torch.float32: torch.float64}[dt]
+    tr = Trainer(cfg, dt, "cuda")
+    batch = make_batch(B, 4)
+    del batch["slo"]
+    results = {}
+    for kern in (False, True):
+        tr.reset(sd)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        aux = tr.step(batch, kernels=kern)
+        torch.cuda.synchronize()
+        if kern:
+            launches = ops.kernel_launches()
+        results[kern] = (aux, *tr.snapshot())
+    ref_tr = Trainer(cfg, ref_dtype, "cuda")
+    ref_tr.reset(sd)
+    ref_tr.step(batch, kernels=False)
+    ref_grads = ref_tr.snapshot()[0]
+    del ref_tr, tr
+    ok_f, cmp = compare_forward(results[True], results[False], dt)
+    ok_g, cmp_g = compare_grads(results[True][1], results[False][1],
+                                ref_grads, dt)
+    ok_u = True
+    for kern, label in ((True, "kernels"), (False, "plain")):
+        o, cmp[f"sgd_update_worst_rel_err_{label}"] = check_sgd_update(
+            sd, {k: v.cpu() for k, v in results[kern][1].items()},
+            {k: v.cpu() for k, v in results[kern][2].items()})
+        ok_u &= o
+    counted = (all(launches[k] > 0 for k in TRAIN_KERNELS
+                   if not k.startswith("banded"))
+               and launches["banded_conv"] == 2
+               and launches["banded_conv_wgrad"] == 2
+               and launches["banded_conv_dgrad"] == 0)
+    cmp.update(cmp_g, reference_dtype=str(ref_dtype))
+    ok = ok_f and ok_g and ok_u
+    return ok and counted, {
+        "phase": "zoo_train", "model": cfg.model, "config": tag, "batch": B,
+        "ok": ok, "forward_ok": ok_f, "grads_ok": ok_g, "sgd_ok": ok_u,
+        "launches": launches, "launches_grew": counted, "card": card, **cmp}
+
+
+def zoo_phase(configs, card):
+    """Phase 9, the rest of the zoo (module note): the failures."""
+    import torch
+    from multimodal_fusion_fpn_torch.eval.ensemble import \
+        make_ensemble_eval_step
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    t0 = time.time()
+    failures = []
+
+    def check(ok, rec, what):
+        emit(rec)
+        if not ok:
+            failures.append(f"zoo: {what}")
+
+    # (a) FPN, the model run.sh trains and serves
+    cfg = zoo_cfg("FPN")
+    models = {tag: build_model(cfg, dtype=dt) for tag, dt, _ in configs}
+    sds = member_state_dicts(models["fp32_B1"], MEMBERS)
+    for tag, dt, B in configs:
+        check(*zoo_eval("FPN", tag, dt, B, models[tag], sds, card,
+                        timed=True), f"FPN ensemble {tag}")
+    ok, st = zoo_small_vs_cpu("FPN", sds[1])
+    check(ok, {"phase": "zoo_small_vs_cpu", "model": "FPN", "ok": ok, **st},
+          "FPN small input vs CPU")
+    for tag, dt, B in configs:
+        ok, rec = zoo_serving(
+            make_ensemble_eval_step(models[tag], sds, with_hd=True), dt,
+            SERVE_IMAGES if dt == torch.bfloat16 else ZOO_FP32_SERVE_IMAGES,
+            B, card)
+        check(ok, dict(rec, config=tag), f"FPN serving {tag}")
+    del models
+    torch.cuda.empty_cache()
+    for tag, dt, B in configs:
+        check(*zoo_train(cfg, tag, dt, B, sds[0], card), f"FPN train {tag}")
+    torch.cuda.empty_cache()
+    # (b) one member of FPN2D, FPNLateFusion ('2d_max') and
+    # FPNClassification
+    for name in ("FPN2D", "FPNLateFusion", "FPNClassification"):
+        models = {tag: build_model(zoo_cfg(name), dtype=dt)
+                  for tag, dt, _ in configs}
+        sd = member_state_dicts(models["fp32_B1"], 1)
+        for tag, dt, B in configs:
+            check(*zoo_eval(name, tag, dt, B, models[tag], sd, card),
+                  f"{name} eval {tag}")
+            if name != "FPNClassification":
+                check(*zoo_bucketed(name, tag, dt, B, models[tag], sd[0]),
+                      f"{name} bucketed {tag}")
+        ok, st = zoo_small_vs_cpu(name, sd[0])
+        check(ok, {"phase": "zoo_small_vs_cpu", "model": name, "ok": ok,
+                   **st}, f"{name} small input vs CPU")
+        del models
+        torch.cuda.empty_cache()
+    # (c) each Regression variant is its base model before the sigmoid
+    batch = zoo_batch("FPNHybridFusion", 4, 3)
+    for reg, base in ZOO_REGRESSION:
+        outs = {}
+        for name in (reg, base):
+            model = build_model(zoo_cfg(name), dtype=torch.bfloat16)
+            if name == reg:
+                sd = member_state_dicts(model, 1)[0]
+            model.load_state_dict(sd)
+            with torch.inference_mode():
+                outs[name] = model(batch)["prediction"]
+        same = bool(torch.equal(torch.sigmoid(outs[reg]), outs[base]))
+        check(same, {"phase": "zoo_regression", "model": reg, "base": base,
+                     "config": "bf16_B4", "ok": same}, f"{reg} vs {base}")
+    emit({"phase": "zoo_done", "ok": not failures,
+          "seconds": time.time() - t0, "card": card})
+    return failures
+
+
+
 def per_step(records, field):
     return sum(r[field] * r["calls_per_step"] for r in records)
 
@@ -2228,7 +2571,10 @@ def main() -> int:
     emit({"phase": "k10_done", "ok": len(failures) == n_bad,
           "seconds": time.time() - t_start})
 
-    # --- 9. summary -------------------------------------------------------
+    # --- 9. the rest of the zoo ------------------------------------------
+    failures += zoo_phase(configs, card)
+
+    # --- 10. summary ------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
         prefix = RECORD_PREFIX.get(path, "")

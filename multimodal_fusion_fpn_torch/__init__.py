@@ -7,8 +7,10 @@ kernels the JAX package wrote in Pallas for the TPU are hand-written CUDA
 here (``csrc/``, built on first use into ``build/kernels/``), each beside
 a plain PyTorch version that the CPU takes.
 
-Ported so far: ensemble inference of ``FPNHybridFusion``
-(:func:`models.zoo.build_model`, :func:`eval.ensemble.make_ensemble_eval_step`).
+Ported so far: the 8 zoo models (:func:`models.zoo.build_model`), their
+ensemble inference (:func:`eval.ensemble.make_ensemble_eval_step`), exact
+shape-bucketed serving (:func:`eval.harness.evaluate`) and the train step
+(:func:`train.step.make_train_step`).
 """
 
 __version__ = "0.1.0"

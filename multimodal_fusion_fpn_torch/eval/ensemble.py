@@ -1,6 +1,10 @@
-"""Ensemble inference: the mean prediction of N members of one model
+"""Ensemble inference: the mean output of N members of one model
 (``multimodal_fusion_fpn_tpu/train/step.py:148-204``,
-``make_ensemble_eval_step``).
+``make_ensemble_eval_step``): every output the model returns is averaged
+over the members, as the JAX step's ``jax.tree.map(jnp.mean, ...)`` does,
+the late-fusion net's ``out_features`` included.  Any zoo model serves:
+one with no en-face input (FPN) takes a batch without the en-face key, and
+FPN2D's prediction comes at the mask's shape.
 
 The JAX package vmaps the stacked member trees; here one module runs each
 member's state dict in turn through ``torch.func.functional_call``.  A
@@ -38,12 +42,12 @@ def make_ensemble_eval_step(model: nn.Module,
                             state_dicts: Sequence[Mapping[str, torch.Tensor]],
                             device="cuda", with_hd: bool = False) -> Callable:
     """``step(batch, spacing=None, kernels=True, block_fusion=None) ->
-    {'prediction': mean over members}`` (``block_fusion``: None, "pair" or
-    "chain", the model's eval block fusion).
+    {each output of the model: its mean over members}`` (``block_fusion``:
+    None, "pair" or "chain", the model's eval block fusion).
 
     ``batch`` maps names to arrays or tensors in the reference layout; they
     are moved to ``device``, except the reserved extent keys, which are
-    read on the host.  The mean is taken in fp32 and returned in the
+    read on the host.  Each mean is taken in fp32 and returned in the
     model's compute dtype, as ``jnp.mean`` does for the JAX ensemble.  With
     ``with_hd`` the step needs ``spacing``, (2,) for the first image or
     (B, 2) for each, and also returns the distances: 0-dim or (B,) fp32."""
@@ -57,10 +61,9 @@ def make_ensemble_eval_step(model: nn.Module,
         b = {k: v if k.startswith("__valid_")
              else torch.as_tensor(v, device=device) for k, v in batch.items()}
         kw = {"kernels": kernels, "block_fusion": block_fusion}
-        preds = [functional_call(model, sd, (b,), kw)["prediction"]
-                 for sd in members]
-        mean = torch.stack(preds).float().mean(dim=0)
-        out = {"prediction": mean.to(preds[0].dtype)}
+        outs = [functional_call(model, sd, (b,), kw) for sd in members]
+        out = {k: torch.stack([o[k] for o in outs]).float().mean(dim=0).to(
+            outs[0][k].dtype) for k in outs[0]}
         if not with_hd:
             return out
         if spacing is None:

@@ -10,7 +10,11 @@ step runs (with the Hausdorff distances on the device when a metric asks
 for them), and each image's prediction is cropped back to its true extent
 before its metrics row is computed (:func:`compute_metrics`).  Padding
 changes no prediction: the model evaluates over the true extents.  Rows
-come out in input order.
+come out in input order.  Every segmentation model of the zoo serves:
+FPN's batches need no en-face map, FPN2D's prediction already has the
+mask's (unpadded) shape, so the crop leaves it as it is, and the
+late-fusion net's ``out_features`` pass through each image's output
+uncropped (``features.png`` is not written here yet).
 
 Not here yet: the data loader and the noise of the JAX harness, the
 artifacts (PNGs, CSV, JSON), the global metrics and the twin of

@@ -7,16 +7,30 @@ from typing import Callable, Dict, Optional
 import torch
 
 
+def _clamped_log(v: torch.Tensor, log, at: float) -> torch.Tensor:
+    """``max(log(v), -100)``, and -100 where ``v == at`` (where ``log`` is
+    -inf) taken without ``log``, so its gradient there is 0, as the clamp
+    gives it wherever ``log`` is finite, and not 0 * inf = NaN.  A NaN
+    ``v`` stays NaN."""
+    hit = v == at
+    return torch.where(hit, -100.0,
+                       torch.clamp(log(torch.where(hit, 0.5, v)), min=-100.0))
+
+
 def bce_loss(output_key: str = "prediction", target_key: str = "mask"):
     """Mean binary cross-entropy on flattened probabilities, each log term
-    clamped at -100 (``F.binary_cross_entropy`` semantics)."""
+    clamped at -100 (``F.binary_cross_entropy`` semantics).  The values are
+    the JAX package's; so is the gradient, except at a prediction of
+    exactly 0 or 1 (a bf16 sigmoid reaches 1 from a logit of about 6),
+    where JAX's clip of ``log(0) = -inf`` gives NaN and this gives the
+    clamp's 0 (ROADMAP Queue 3)."""
     def fn(target: Dict, predict: Dict) -> torch.Tensor:
         assert target[target_key].shape == predict[output_key].shape, (
             target[target_key].shape, predict[output_key].shape)
         pred = predict[output_key].reshape(-1)
         gt = target[target_key].reshape(-1).to(pred.dtype)
-        log_p = torch.clamp(torch.log(pred), min=-100.0)
-        log_1p = torch.clamp(torch.log1p(-pred), min=-100.0)
+        log_p = _clamped_log(pred, torch.log, 0.0)
+        log_1p = _clamped_log(pred, lambda v: torch.log1p(-v), 1.0)
         return -torch.mean(gt * log_p + (1.0 - gt) * log_1p)
     return fn
 

@@ -9,6 +9,7 @@ Counterparts of ``multimodal_fusion_fpn_tpu/models/blocks.py``:
   * ``EncoderStage``: the '2plus3' stage (``blocks.py:785-902``), 3D or 2D.
   * ``ZDimReduction``: stride-2 (1,1,3) cascade + VALID (1,1,4) ``fully``
     conv (``blocks.py:905-1211``).
+  * ``UpBlock2``: 2-input decoder block (``blocks.py:1224-1246``).
   * ``UpBlockFusion``: 3-input decoder block in concat mode
     (``blocks.py:1249-1279``).
 
@@ -439,6 +440,44 @@ class ZDimReduction(nn.ModuleList):
             x = block(x, kernels, ext)
             ext = block.out_extents(ext)
         return x
+
+
+def refuse_dropout(dropout: Sequence[float], encoders: Sequence[str] = ("",),
+                   decoder: bool = True) -> None:
+    """Raise for a net in training whose spec has dropout > 0 in a slot it
+    builds: the JAX package applies each block's dropout in training
+    (``blocks.py:777-778``) and then runs that stage off its fused kernels;
+    the port has no dropout yet (ROADMAP M8).  In eval dropout is the
+    identity.  Slots 0-4 are the encoder levels, whose stages are named
+    ``conv<level><suffix>`` for each suffix of ``encoders``; slots 5-8 the
+    decoder blocks, which a net without a decoder does not build."""
+    for slot, p in enumerate(dropout):
+        if p <= 0 or (slot >= 5 and not decoder):
+            continue
+        stages = ", ".join(f"conv{slot + 1}{sfx}" for sfx in encoders)
+        where = (f"encoder level {slot + 1} ({stages})" if slot < 5 else
+                 f"decoder block up_concat{9 - slot}")
+        raise NotImplementedError(
+            f"dropout slot {slot} ({where}) is {p}: the port does not "
+            f"apply dropout in training yet (ROADMAP M8)")
+
+
+class UpBlock2(nn.Module):
+    """Decoder block of the single-modality nets: nearest upsample of the
+    deeper map, concat with one skip, ConvX (3,3,1)x2 with a 1x1
+    projection."""
+
+    def __init__(self, c_low: int, c_cur: int, upfactor: Sequence[int]):
+        super().__init__()
+        self.conv = ConvX(c_low + c_cur, c_cur, ((3, 3, 1),) * 2,
+                          downsample=True)
+        self.upfactor = tuple(upfactor)
+
+    def forward(self, skip, deeper, kernels: bool = True,
+                ext: Extents = None):
+        """``ext``: the true extents of the skip, (y, x, None)."""
+        up = upsample_nearest(deeper, self.upfactor, axes=(1, 2, 3))
+        return self.conv(torch.cat([skip, up], dim=-1), kernels, ext)
 
 
 class UpBlockFusion(nn.Module):

@@ -22,14 +22,15 @@ from torch import nn
 from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
 from multimodal_fusion_fpn_torch.models.blocks import (Conv1x1, EncoderStage,
                                                        UpBlockFusion,
-                                                       ZDimReduction)
-from multimodal_fusion_fpn_torch.models.encoder3d import (proj_depth_ext,
-                                                          run_2d_encoder,
+                                                       ZDimReduction,
+                                                       refuse_dropout)
+from multimodal_fusion_fpn_torch.models.encoder3d import (run_2d_encoder,
                                                           run_3d_encoder)
 from multimodal_fusion_fpn_torch.models.unet3d import (NUM_REDUCTIONS,
-                                                       POOLS_3D, UPFACTORS)
+                                                       POOLS_3D, UPFACTORS,
+                                                       check_spec, project)
 from multimodal_fusion_fpn_torch.ops.dynamic_extent import (
-    adaptive_max_pool_dynamic, linear_resize_dynamic, masked_mean)
+    adaptive_max_pool_dynamic, linear_resize_dynamic)
 from multimodal_fusion_fpn_torch.ops.interpolate import linear_resize
 from multimodal_fusion_fpn_torch.ops.pooling import adaptive_max_pool
 
@@ -74,9 +75,7 @@ class ModifiedUnet3D2D(nn.Module):
     def __init__(self, spec: ArchSpec, n_classes: int = 1,
                  interpolate: Optional[str] = None):
         super().__init__()
-        if not spec.is_batchnorm or spec.is_deconv:
-            raise NotImplementedError(
-                "the port supports is_batchnorm=True, is_deconv=False")
+        check_spec(spec)
         ch = spec.channels
         self.dropout = tuple(spec.dropout)
         self.interpolate = interpolate
@@ -92,20 +91,6 @@ class ModifiedUnet3D2D(nn.Module):
                     UpBlockFusion(lows[i], ch[lvl], UPFACTORS[i]))
         self.final1 = Conv1x1(ch[0], n_classes)
 
-    def _refuse_dropout(self):
-        """The JAX package applies each block's dropout in training
-        (``blocks.py:777-778``) and then runs that stage off its fused
-        kernels; the port has no dropout yet (ROADMAP M8), so a spec with
-        any slot > 0 cannot train here.  In eval dropout is the identity."""
-        for slot, p in enumerate(self.dropout):
-            if p > 0:
-                where = (f"encoder level {slot + 1} (conv{slot + 1}, "
-                         f"conv{slot + 1}_2d)" if slot < 5 else
-                         f"decoder block up_concat{9 - slot}")
-                raise NotImplementedError(
-                    f"dropout slot {slot} ({where}) is {p}: the port does not "
-                    f"apply dropout in training yet (ROADMAP M8)")
-
     def forward(self, volume: torch.Tensor, enface: torch.Tensor,
                 kernels: bool = True, ext3d=None, ext2d=None,
                 block_fusion: Optional[str] = None) -> torch.Tensor:
@@ -115,19 +100,14 @@ class ModifiedUnet3D2D(nn.Module):
         ``block_fusion``: None, "pair" or "chain", the eval block fusion
         of the 3D encoder stages (``blocks.ConvX``)."""
         if self.training:
-            self._refuse_dropout()
+            refuse_dropout(self.dropout, encoders=("", "_2d"))
         skips2d, exts2d = run_2d_encoder(
             [getattr(self, f"conv{i + 1}_2d") for i in range(5)], enface,
             POOLS_2D, kernels, ext2d)
         skips3d, exts = run_3d_encoder(
             [getattr(self, f"conv{i + 1}") for i in range(5)], volume,
             POOLS_3D, kernels, ext3d, block_fusion)
-        projected = []
-        for i, s in enumerate(skips3d):
-            p = getattr(self, f"zdimRed{i + 1}")(s, kernels, exts[i])
-            zf = proj_depth_ext(exts[i], NUM_REDUCTIONS[i], 4)
-            projected.append(p.mean(dim=3, keepdim=True) if zf is None
-                             else masked_mean(p, 3, zf))
+        projected = project(self, skips3d, exts, kernels)
         aligned = [align_2d_skip(s, p.shape[1:4], self.interpolate, e2, e3)
                    for s, p, e2, e3 in zip(skips2d, projected, exts2d, exts)]
         up = torch.cat([projected[4], aligned[4]], dim=-1)

@@ -9,8 +9,7 @@ Two tie rules, as the JAX package's default lowering has them:
   64 channels) this way.
 * ``first_max``: the cotangent goes to the first max in (Y, X, Z) window
   order, as XLA's ``reduce_window`` max VJP (``blocks.max_pool``, the
-  compact 128-channel stage-4 pools in the JAX package) and
-  ``F.max_pool3d`` do.
+  compact 128-channel stage-4 pools in the JAX package) does.
 
 Source note.  The CUDA kernels (``csrc/pool.cu``) replace the TPU kernels
 ``multimodal_fusion_fpn_tpu/ops/pallas/pool.py:_pool_fwd_impl``
@@ -32,8 +31,9 @@ NaN.  A window that holds a NaN pools to NaN, as ``jnp.maximum`` and
 ``amax`` give it (the kernel returns the type's canonical NaN).  The
 all-ties backward gives the cotangent to every NaN input of a window whose
 output is NaN, as the JAX backward's bit compare does wherever the
-window's NaNs share one bit pattern; the first-max backward's NaN rule is
-``F.max_pool3d``'s and is not held against JAX.
+window's NaNs share one bit pattern.  The first-max backward follows
+XLA's select-and-scatter (``ge`` select): a NaN keeps its window's
+cotangent only when no later element of the window follows it.
 """
 
 import collections
@@ -41,7 +41,6 @@ import ctypes
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 
 from multimodal_fusion_fpn_torch.ops.fused_conv import _fn, _stream
 
@@ -94,14 +93,27 @@ def max_pool3d_cl_bwd_plain(x: torch.Tensor, y: torch.Tensor,
 
 def max_pool3d_cl_bwd_first(x: torch.Tensor, g: torch.Tensor,
                             window: Sequence[int]) -> torch.Tensor:
-    """First-max backward (plain PyTorch): ``F.max_pool3d``'s autograd on
-    the channels-first view gives g to the first max of each window in
-    (Y, X, Z) order."""
-    with torch.enable_grad():
-        xc = x.detach().permute(0, 4, 1, 2, 3).requires_grad_()
-        dx, = torch.autograd.grad(F.max_pool3d(xc, tuple(window)), xc,
-                                  g.to(x.dtype).permute(0, 4, 1, 2, 3))
-    return dx.permute(0, 2, 3, 4, 1).contiguous()
+    """First-max backward (plain PyTorch, on any device): XLA's
+    select-and-scatter with a ``ge`` select, the VJP of the JAX package's
+    ``blocks.max_pool``.  It walks each window in (Y, X, Z) order from its
+    first element and moves the selection from ``s`` to a later ``c``
+    whenever ``not (x[s] >= x[c])``, then gives g to the selected element:
+    the first max (a tie, +0 against -0 included, keeps the first), and a
+    NaN keeps the selection only while no later element follows it."""
+    xw = _windows(x, window)
+    B, Yo, wy, Xo, wx, Zo, wz, C = xw.shape
+    # (B, Yo, Xo, Zo, C, window positions in (Y, X, Z) order)
+    v = xw.permute(0, 1, 3, 5, 7, 2, 4, 6).reshape(B, Yo, Xo, Zo, C, -1)
+    sel_v, sel_i = v[..., 0], torch.zeros_like(v[..., 0], dtype=torch.uint8)
+    for c in range(1, v.shape[-1]):
+        move = ~(sel_v >= v[..., c])
+        sel_v = torch.where(move, v[..., c], sel_v)
+        sel_i = torch.where(move, c, sel_i)
+    pos = torch.arange(v.shape[-1], device=x.device, dtype=torch.uint8)
+    d = torch.where(sel_i.unsqueeze(-1) == pos, g.to(x.dtype).unsqueeze(-1),
+                    x.new_zeros(()))
+    d = d.reshape(B, Yo, Xo, Zo, C, wy, wx, wz).permute(0, 1, 5, 2, 6, 3, 7, 4)
+    return _scatter(x, d)
 
 
 def _check(x, who):

@@ -10,7 +10,9 @@ its own copy of the name table: flax ``conv{i}`` / ``bn{i}`` /
 ``0`` / ``1`` (``fully`` is ``0`` at level 5, which has no cascade).
 Kernels go from (k..., I, O) to (O, I, k...); BN ``scale`` / ``bias`` /
 ``mean`` / ``var`` become ``weight`` / ``bias`` / ``running_mean`` /
-``running_var``, and ``num_batches_tracked`` is 0.
+``running_var``, and ``num_batches_tracked`` is 0.  The root of a path
+(``resensnet``, ``resensnet3d``, ``resensnet2d``) is kept as it is; a conv
+at the model's top level (``one_one``, ``fusion_module``) keeps its name.
 """
 
 from typing import Dict, Mapping
@@ -43,6 +45,8 @@ def _convx_sub(name: str) -> str:
 
 def _module_key(path) -> str:
     """Flax module path (without the leaf) -> torch module prefix."""
+    if len(path) == 1:
+        return path[0]
     root, mod, rest = path[0], path[1], path[2:]
     if mod == "final1" and not rest:
         return f"{root}.final1"

@@ -52,7 +52,8 @@ from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
 from multimodal_fusion_fpn_torch.models.zoo import build_model
 from multimodal_fusion_fpn_torch.ops import dynamic_extent as tdyn
 from multimodal_fusion_fpn_torch.ops import fused_conv as tfc
-from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
+from multimodal_fusion_fpn_torch.weights import (init_state_dict,
+                                                 state_dict_from_jax)
 
 from rollfree_calls import rollfree_calls  # noqa: F401 (fixture)
 from test_torch_model import compile_ref, random_trees
@@ -490,3 +491,103 @@ def test_evaluate_bucketed_rows_match_unbucketed(bucketed_case):
         want = host[name].calculate_batch(
             batch, {"prediction": out["prediction"].numpy()})[0]
         np.testing.assert_allclose(float(out[key]), want, rtol=1e-4)
+
+
+# --- the rest of the zoo -------------------------------------------------------
+
+def _zoo_model(case, name, seed=13):
+    """``name`` at the tiny widths from the port's seeded init, with its
+    BatchNorm running stats and affines drawn far from the identity."""
+    cfg = make_config(model=name, crop="relative_2d_max",
+                      fusion_modality="slo")
+    model = build_model(cfg, spec=case["spec"], device="cpu")
+    sd = init_state_dict(model, seed)
+    gen = torch.Generator().manual_seed(seed)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            v.normal_(0.0, 0.5, generator=gen)
+        elif k.endswith("running_var"):
+            v.uniform_(0.5, 2.0, generator=gen)
+        elif k.endswith((".1.weight", ".1.bias")) and v.dim() == 1:
+            v.normal_(1.0 if k.endswith("weight") else 0.0, 0.1,
+                      generator=gen)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _run_zoo(model, batch, kernels=True):
+    with torch.no_grad():
+        return model({k: torch.as_tensor(v) for k, v in batch.items()},
+                     kernels=kernels)["prediction"].numpy()
+
+
+# (model, which inputs the bucketing padded)
+ZOO_BUCKETED = [("FPN", "image"), ("FPN2D", "slo"),
+                ("FPNLateFusion", "both"), ("FPNLateFusion", "image"),
+                ("FPNLateFusion", "slo")]
+
+
+@pytest.mark.parametrize("name,padded", ZOO_BUCKETED)
+def test_bucketed_zoo_matches_unbucketed(bucketed_case, name, padded):
+    """FPN, FPN2D and FPNLateFusion on the zero-padded batch with its true
+    extents against their own run on the unpadded batch (port against
+    port), the kernel route and the plain route alike (1e-5): FPN and
+    FPNLateFusion cropped to the true extent, FPN2D at the mask's shape
+    with no crop (its resize runs from the true en-face extents).
+    FPNLateFusion also with only one modality padded: the other
+    contributes its static shape.  The control, extents claiming the
+    padded shape, moves the prediction."""
+    case = bucketed_case
+    mask = (np.random.default_rng(14).random((1, 1, Y, 1, X))
+            > 0.6).astype(np.float32)
+    batch = dict(case["batch"], mask=mask)
+    keys = ("image", "slo") if padded == "both" else (padded,)
+    valid = {"image": "__valid_image__", "slo": "__valid_enface__"}
+    bucketed = dict(batch, mask=mask)
+    for k in keys:
+        bucketed[k] = case["padded"][k]
+        bucketed[valid[k]] = case["padded"][valid[k]]
+    model = _zoo_model(case, name)
+    ref = _run_zoo(model, batch)
+    assert ref.shape == (1, 1, Y, 1, X)
+    for kernels in (True, False):
+        got = _run_zoo(model, bucketed, kernels)
+        if name == "FPN2D":
+            assert got.shape == ref.shape
+        got = got[:, :, :Y, :, :X]
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    bad = dict(bucketed, **{valid[k]: np.asarray(
+        [bucketed[k].shape[i] for i in ((2, 3, 4) if k == "image"
+                                         else (2, 4))], np.int32)
+        for k in keys})
+    got = _run_zoo(model, bad)[:, :, :Y, :, :X]
+    assert np.abs(got - ref).max() > 1e-3
+
+
+@pytest.mark.parametrize("name", ["FPN", "FPN2D", "FPNLateFusion"])
+def test_evaluate_serves_the_zoo(bucketed_case, name):
+    """``evaluate`` with bucket 64 and ``eval_batch`` 2 against bucket 0
+    for the rest of the segmentation zoo: the same rows in the same order
+    (1e-5), FPN's batches carrying no en-face map, FPN2D's prediction
+    coming out at the mask's shape."""
+    model = _zoo_model(bucketed_case, name)
+    rng = np.random.default_rng(15)
+    shapes = [(8, 72, 32, 88), (8, 72, 32, 88), (12, 64, 32, 80)]
+    batches = [_image(rng, f"img{i}", *s) for i, s in enumerate(shapes)]
+    if name == "FPN":
+        for b in batches:
+            del b["slo"]
+    step = make_ensemble_eval_step(model, [model.state_dict()],
+                                   device="cpu", with_hd=True)
+    plain, _ = evaluate(step, batches, _metrics(), shape_bucket=0)
+    bucketed, _ = evaluate(step, batches, _metrics(), shape_bucket=64,
+                           eval_batch=2)
+    assert [r["FileSetId"] for r in bucketed] == ["img0", "img1", "img2"]
+    for a, b in zip(plain, bucketed):
+        assert list(a) == list(b) and len(a) == 10
+        for k, v in a.items():
+            if isinstance(v, str):
+                assert b[k] == v
+            else:
+                np.testing.assert_allclose(b[k], v, rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{a['FileSetId']}/{k}")

@@ -474,16 +474,27 @@ def test_max_pool_bwd_kernel_matches_plain_on_ties(gen, shape, window, dtype):
 
 @pytest.mark.cuda
 def test_max_pool_first_max_backward_matches_torch(gen):
-    """The stage-4 rule: g to the first max in (Y, X, Z) order, as
-    F.max_pool3d's backward gives it."""
+    """The stage-4 rule, JAX's select-and-scatter (``ge`` select): g to
+    the first max in (Y, X, Z) order, and to a NaN only when no later
+    element of its window follows it.  The autograd Function on the card
+    against the same plain function on the CPU (which
+    ``tests/test_torch_ops.py`` holds against JAX), and against
+    F.max_pool3d's backward on the windows without a NaN."""
     x = _tied(gen, (2, 4, 6, 16, 128), torch.float32)
+    x[0, 0, 0, 0, 0] = x[0, 1, 0, 2, 1] = x[1, 1, 1, 15, 2] = float("nan")
     g = torch.randn(2, 2, 3, 8, 128, generator=gen, device="cuda")
     xg = x.clone().requires_grad_()
     tpool.max_pool3d_cl(xg, (2, 2, 2), first_max=True).backward(g)
+    want = tpool.max_pool3d_cl_bwd_first(x.cpu(), g.cpu(), (2, 2, 2))
+    assert torch.equal(xg.grad.cpu(), want)
+    assert xg.grad[0, 0, 0, 0, 0] == 0 and xg.grad[1, 1, 1, 15, 2] != 0
     xt = x.permute(0, 4, 1, 2, 3).clone().requires_grad_()
-    torch.nn.functional.max_pool3d(xt, (2, 2, 2)).backward(
-        g.permute(0, 4, 1, 2, 3))
-    assert torch.equal(xg.grad, xt.grad.permute(0, 2, 3, 4, 1))
+    F.max_pool3d(xt, (2, 2, 2)).backward(g.permute(0, 4, 1, 2, 3))
+    clean = ~x.isnan().reshape(2, 2, 2, 3, 2, 8, 2, 128).any(
+        dim=(2, 4, 6), keepdim=True).expand(2, 2, 2, 3, 2, 8, 2,
+                                            128).reshape(x.shape)
+    assert torch.equal(xg.grad[clean],
+                       xt.grad.permute(0, 2, 3, 4, 1)[clean])
 
 
 _INTS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}

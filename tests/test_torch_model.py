@@ -245,6 +245,26 @@ def test_hybrid_fusion_bf16_close_to_jax_fp32(hybrid_weights, jax_hybrid):
     assert cos >= 0.999 and abs(ratio - 1) <= 0.01, (cos, ratio)
 
 
+def test_hybrid_regression_is_the_hybrid_before_the_sigmoid(
+        hybrid_weights, jax_hybrid):
+    """``FPNHybridFusionRegression`` differs only in its head: its output
+    through a sigmoid meets the JAX hybrid's prediction (1e-4) and the
+    port's hybrid bit for bit."""
+    batch, _, params, stats = hybrid_weights
+    cfg = make_config(model="FPNHybridFusionRegression",
+                      crop="relative_2d_max", fusion_modality="slo")
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    with torch.no_grad():
+        logits = model({k: torch.from_numpy(v)
+                        for k, v in batch.items()})["prediction"]
+    got = torch.sigmoid(logits).numpy()
+    np.testing.assert_allclose(got, jax_hybrid[("relative_2d_max", "on")],
+                               **TOL)
+    np.testing.assert_array_equal(
+        got, port_hybrid(hybrid_weights, "relative_2d_max").numpy())
+
+
 def test_state_dict_round_trips_through_torch_import(hybrid_weights):
     _, template, params, stats = hybrid_weights
     model = build_model(_cfg("relative_2d_max"), device="cpu")
@@ -258,12 +278,19 @@ def test_state_dict_round_trips_through_torch_import(hybrid_weights):
             np.testing.assert_array_equal(x, y)
 
 
+# kernel-wrapper calls per member forward at the ini widths: the hybrid's
+# 35 (1,*,*) fused convs are its 3D and 2D stages' 13 + 13 and its
+# cascades' 4 + 3 + 2; FPN has the 3D half, FPN2D the 2D half; each net
+# pools 4 times, its 128-channel stage-4 pool with the first-max rule
+ROUTING = {"FPNHybridFusion": {"k1": 35, "k2": 6, "pool": 8, "first_max": 2},
+           "FPN": {"k1": 22, "k2": 3, "pool": 4, "first_max": 1},
+           "FPN2D": {"k1": 13, "k2": 3, "pool": 4, "first_max": 1}}
+
+
 def test_kernel_routing_counts_per_member(monkeypatch):
     """Which calls take the kernels on the main path, counted on the CPU
-    by spies on the wrappers: per member 35 (1,*,*) fused convs (3D and
-    2D stages 13 + 13, cascades 4 + 3 + 2), 6 (3,1,1) convs and 8 pools,
-    of which the two 128-channel stage-4 pools take the first-max
-    backward rule."""
+    by spies on the wrappers (``ROUTING``), for the hybrid and for each of
+    its halves as a model of its own; ``kernels=False`` calls none."""
     seen = {"k1": 0, "k2": 0, "pool": 0, "first_max": 0}
     real_conv, real_pool = tblocks.fused_conv, tenc.max_pool3d_cl
 
@@ -279,15 +306,17 @@ def test_kernel_routing_counts_per_member(monkeypatch):
 
     monkeypatch.setattr(tblocks, "fused_conv", conv_spy)
     monkeypatch.setattr(tenc, "max_pool3d_cl", pool_spy)
-    model = build_model(_cfg("relative_2d_max"), device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(3).items()}
-    with torch.no_grad():
-        model(batch)
-    assert seen == {"k1": 35, "k2": 6, "pool": 8, "first_max": 2}
-    seen.update(k1=0, k2=0, pool=0, first_max=0)
-    with torch.no_grad():
-        model(batch, kernels=False)
-    assert seen == {"k1": 0, "k2": 0, "pool": 0, "first_max": 0}
+    for name, want in ROUTING.items():
+        cfg = make_config(model=name, crop="relative_2d_max",
+                          fusion_modality="slo")
+        model = build_model(cfg, device="cpu")
+        for kernels in (True, False):
+            seen.update(k1=0, k2=0, pool=0, first_max=0)
+            with torch.no_grad():
+                model(batch, kernels=kernels)
+            assert seen == (want if kernels else dict.fromkeys(want, 0)), \
+                (name, kernels)
 
 
 def test_init_state_dict_is_seeded():

@@ -526,16 +526,21 @@ def test_max_pool_matches_jax_pool_packed(win, dtype):
     np.testing.assert_array_equal(got.float().numpy(), ref)
 
 
-def _plant_nan(x, win):
+def _plant_nan(x, win, leading=False):
     """x with NaN at the first and the last position of window 0 (channel
     0) and at the last position of the last window (channel 5); the other
-    windows keep their values."""
+    windows keep their values.  With ``leading`` also NaNs that numbers
+    follow in their windows: at the first position of the second window
+    along z (channel 1) and at (wy - 1, 0, 0) of the third (channel 2)."""
     wy, wx, wz = win
     B, Y, X, Z, C = x.shape
     x = x.copy()
     x[0, 0, 0, 0, 0] = np.nan
     x[0, wy - 1, wx - 1, wz - 1, 0] = np.nan
     x[B - 1, Y // wy * wy - 1, X // wx * wx - 1, Z // wz * wz - 1, 5] = np.nan
+    if leading:
+        x[0, 0, 0, wz, 1] = np.nan
+        x[0, wy - 1, 0, 2 * wz, 2] = np.nan
     return x
 
 
@@ -608,13 +613,19 @@ def test_max_pool_bwd_signed_zero_ties_follow_tie_mask(win):
 
 @pytest.mark.parametrize("win", [(1, 2, 2), (2, 2, 2)])
 def test_max_pool_first_max_bwd_matches_jax_reduce_window(win):
-    """The stage-4 rule: XLA's reduce_window max VJP (``blocks.max_pool``)
-    gives g to the first max in (Y, X, Z) window order only."""
-    x = _tied((2, 4, 6, 10, 128), seed=5 + sum(win))
+    """The stage-4 rule: XLA's reduce_window max VJP (``blocks.max_pool``,
+    a select-and-scatter with a ``ge`` select) gives g to the first max in
+    (Y, X, Z) window order only, and to a NaN only when no later element
+    of its window follows it (``_plant_nan`` with ``leading``)."""
+    x = _plant_nan(_tied((2, 4, 6, 10, 128), seed=5 + sum(win)), win,
+                   leading=True)
     y, pull = jax.vjp(lambda v: jblocks.max_pool(v, win), jnp.asarray(x))
     g = np.random.default_rng(2).normal(size=y.shape).astype(np.float32)
     ref = np.asarray(pull(jnp.asarray(g))[0])
     assert np.count_nonzero(ref) == np.count_nonzero(g)
+    # a NaN followed by numbers gives g to one of them
+    assert ref[0, 0, 0, win[2], 1] == 0 and ref[0, win[0] - 1, 0,
+                                                 2 * win[2], 2] == 0
     for got in _port_pool_vjp(x, g, win, first_max=True):
         np.testing.assert_array_equal(got, ref)
 

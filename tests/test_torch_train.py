@@ -538,6 +538,34 @@ def test_losses_and_metrics_match_jax():
                    getattr(jmetrics, fn)(jp["prediction"], jb["mask"]), fn)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bce_gradient_at_saturated_predictions(dtype):
+    """Predictions of exactly 0 and 1 (a bf16 sigmoid gives 1 from a logit
+    of about 6): the loss is the JAX package's; JAX's gradient there is
+    NaN (its clip of log(0) = -inf passes 0 * inf back: ROADMAP Queue 3),
+    the port's is the clamp's, 0 through the saturated log term, and
+    elsewhere the two agree."""
+    pred = np.array([0.0, 1.0, 0.0, 1.0, 0.3, 0.7, 1e-30], np.float32)
+    mask = np.array([0, 0, 1, 1, 1, 0, 1], np.float32)
+    shape = (1, 1, 7, 1, 1)
+    jfn = jlosses.bce_loss()
+    jloss, jgrad = jax.value_and_grad(lambda p: jfn(
+        {"mask": jnp.asarray(mask.reshape(shape), dtype)}, {"prediction": p}))(
+            jnp.asarray(pred.reshape(shape), dtype))
+    p = torch.tensor(pred.reshape(shape)).to(getattr(torch, dtype))
+    p.requires_grad_()
+    loss = tlosses.bce_loss()({"mask": torch.tensor(mask.reshape(shape))},
+                              {"prediction": p})
+    loss.backward()
+    assert_rel(loss.float().detach().numpy(), np.float32(jloss), "loss")
+    jgrad = np.asarray(jgrad, np.float32).ravel()
+    got = p.grad.float().numpy().ravel()
+    assert np.isnan(jgrad[:4]).all() and np.isfinite(got).all()
+    np.testing.assert_allclose(got[:4], [1 / 7, 0, 0, -1 / 7], rtol=1e-2)
+    np.testing.assert_allclose(got[4:], jgrad[4:], rtol=1e-2 if
+                               dtype == "bfloat16" else 1e-6)
+
+
 def test_sgd_matches_optax_chain():
     """``train.optim.sgd`` (torch.optim.SGD) against the JAX package's optax
     chain over three steps: coupled weight decay, momentum from step 2."""
