@@ -191,10 +191,30 @@ Phases, each of which fails the run on any error:
    shape, uncropped).  (c) Each Regression variant, bf16 B=4 on the
    kernel path: the sigmoid of its output equals its base model's
    prediction bit for bit.
-10. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+10. The serving entry point (``entry_phase``): the port's
+   ``validate_ensemble.run`` over a synthetic HRF tree written by the
+   port's ``make_synthetic_hrf`` (ENTRY_VISITS visits of phase 6's first
+   true shape), ``FPNHybridFusion`` at the ini widths, ``relative_2d_max``,
+   SLO, five seeded members (``member_state_dicts``, each final bias moved
+   by minus its median logit on the first visit) written as
+   ``epoch=*.ckpt``; each run in its own working directory.  bf16 with
+   ``--eval-batch 4 --save-all-outputs``: on the kernels (the launch counts
+   must be ENTRY_LAUNCHES exactly), with ``kernels=False`` (the soft
+   predictions of ``all_outputs.npz`` held by phase 3's bf16 rule), on the
+   kernels again (timed: the entry point's images/s from the call to the
+   last artifact, ``evaluate``'s own without the loader's time, the split
+   into load + transforms, step, metrics and artifacts) and once more under
+   ``torch.profiler`` (the card's busy share).  fp32 on two smaller visits
+   on the card and on the CPU: predictions within 1e-4 * max|p|, the metric
+   rows at rel 1e-4; the same with the first member's ENTRY_FAULT conv
+   zeroed must fail.  Every run's result tree has the same files, and a
+   second run of each skips.
+11. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
-   the fused runs of phase 7 for K8; max-abs-err of its fp32 comparisons;
+   the fused runs of phase 7 for K8, and beside them the entry point's
+   bf16 run of phase 10, ``launches_entry_point``; max-abs-err of its fp32
+   comparisons;
    per-step times summed over the bf16 B=4 calls (for the bucketed paths
    one bucketed ensemble step of 5 members, where the launches count the
    serving run's SERVE_IMAGES / SERVE_BATCH steps), for the tensor-core
@@ -210,6 +230,7 @@ Exits non-zero, printing no result, without CUDA or without the package.
 
 import collections
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -347,6 +368,24 @@ ZOO_REGRESSION = (("FPNRegression", "FPN"),
                   ("FPNLateFusionRegression", "FPNLateFusion"))
 # the images of phase 9's fp32 serving check (one of each true shape)
 ZOO_FP32_SERVE_IMAGES = 2
+
+# phase 10: the serving entry point over synthetic HRF trees.  The bf16
+# tree: ENTRY_VISITS visits of phase 6's first true shape, which bucket to
+# OCT (48, 512, 192) and en-face (256, 192); the fp32 tree: two smaller
+# visits, both modalities padded (OCT (16, 120, 48) -> (16, 128, 48),
+# en-face (72, 48) -> (80, 48)), small enough for the CPU run
+ENTRY_VISITS = 8
+ENTRY_OCT, ENTRY_SLO = SERVE_OCT[0], SERVE_SLO[0]
+ENTRY_SMALL_VISITS = 2
+ENTRY_SMALL_OCT, ENTRY_SMALL_SLO = (16, 120, 48), (72, 48)
+ENTRY_BATCH = 4
+# launches of one bf16 run: 2 dispatches of 4 images x 5 members x (35 K7
+# (1,3,3), 6 K7 (3,1,1), 8 K5f, 4 K10 with extents); every other kernel 0
+ENTRY_LAUNCHES = {"fused_conv_dyn": 350, "fused_conv_dyn_ky3": 60,
+                  "max_pool3d_cl": 80, "banded_conv_dyn": 40}
+# the conv that the planted fault zeroes in the first member (a stage-2
+# conv of the 3D net, on the kernel path)
+ENTRY_FAULT = "resensnet.conv2.0.convBlock.1.0.weight"
 
 
 def emit(obj):
@@ -2130,6 +2169,256 @@ def zoo_phase(configs, card):
 
 
 
+def entry_argv(paths, precision):
+    """The entry point's argv for a synthetic tree: ``tests/test_e2e.py``'s
+    model and crop at the ini widths (no ``--arch-config``)."""
+    return ["--training-dataset", "hrf_fusion", "--model", "FPNHybridFusion",
+            "--crop", "relative_2d_max", "--fusion-modality", "slo",
+            "--version", "chip_smoke", "--data-root", paths["oct"],
+            "--split-name", "split", "--precision", precision,
+            "--eval-batch", str(ENTRY_BATCH), "--save-all-outputs"]
+
+
+def entry_members(paths, ckpt_dir, fault=False):
+    """Five seeded members (``member_state_dicts``), each with its final
+    bias moved by minus the median logit of its fp32 prediction on the
+    tree's first visit (so that the thresholded artifacts are not empty),
+    written to ``ckpt_dir`` as ``epoch=*.ckpt``; with ``fault`` the first
+    member's ENTRY_FAULT conv is zeroed."""
+    import os
+    import torch
+    from multimodal_fusion_fpn_torch.config import parse_config
+    from multimodal_fusion_fpn_torch.eval.configs import opt_factory
+    from multimodal_fusion_fpn_torch.eval.harness import \
+        create_val_dataloader
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    from multimodal_fusion_fpn_torch.train.checkpoints import save_checkpoint
+    cfg = parse_config(entry_argv(paths, "fp32"))
+    opt = opt_factory["hrf_fusion"](cfg)
+    with open(paths["split"]) as f:
+        ids = json.load(f)["test"]
+    batch = next(iter(create_val_dataloader(opt, ids,
+                                            opt.get_val_transforms(), 0)))
+    b = {k: torch.as_tensor(batch[k], device="cuda")
+         for k in ("image", "slo")}
+    model = build_model(cfg)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for i, sd in enumerate(member_state_dicts(model, MEMBERS)):
+        model.load_state_dict(sd)
+        with torch.inference_mode():
+            p = model(b, kernels=False)["prediction"].double()
+        sd["resensnet.final1.bias"] -= float(
+            torch.logit(p.clamp(1e-12, 1 - 1e-12)).median())
+        if fault and i == 0:
+            sd[ENTRY_FAULT].zero_()
+        save_checkpoint(os.path.join(ckpt_dir, f"epoch={i}-Dice=0.5.ckpt"),
+                        sd)
+
+
+def entry_run(paths, precision, workdir, ckpt_dir, device="cuda",
+              kernels=True, profile=False):
+    """One run of the entry point in its own working directory, its
+    members linked from ``ckpt_dir``: (the run's info, its files, the
+    launch counts, the profiler's busy ms or None)."""
+    import os
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch import paths as path_utils
+    from multimodal_fusion_fpn_torch import validate_ensemble
+    from multimodal_fusion_fpn_torch.config import parse_config
+    argv = entry_argv(paths, precision)
+    model_path = os.path.join(workdir, path_utils.get_model_path(
+        parse_config(argv), os.path.join(paths["oct"], "split")))
+    os.makedirs(model_path)
+    for name in sorted(os.listdir(ckpt_dir)):
+        os.symlink(os.path.join(ckpt_dir, name),
+                   os.path.join(model_path, name))
+    prev = os.getcwd()
+    os.chdir(workdir)
+    try:
+        # the entry point's log (its config, one line per image) stays out
+        with contextlib.redirect_stdout(io.StringIO()):
+            ops.reset_launches()
+            if profile:
+                box = []
+                busy, _ = trace_step(lambda: box.append(
+                    validate_ensemble.run(argv, device=device,
+                                          kernels=kernels)))
+                info = box[0]
+            else:
+                busy = None
+                info = validate_ensemble.run(argv, device=device,
+                                             kernels=kernels)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches = ops.kernel_launches()
+            try:   # a second run finds the results and skips
+                validate_ensemble.run(argv, device=device, kernels=kernels)
+                info["skipped"] = False
+            except SystemExit as exc:
+                info["skipped"] = exc.code == 0
+    finally:
+        os.chdir(prev)
+    out = os.path.join(workdir, info["output_path"])
+    files = {}
+    for d, _, names in os.walk(out):
+        for n in names:
+            files[os.path.relpath(os.path.join(d, n), out)] = \
+                os.path.join(d, n)
+    return info, files, launches, busy
+
+
+def entry_rows(path):
+    """The numeric columns of a test_output.csv: {name: float64 array}."""
+    import csv
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    out = {}
+    for j, name in enumerate(rows[0][1:], 1):
+        try:
+            out[name] = np.array([float(r[j]) if r[j] else np.nan
+                                  for r in rows[1:]])
+        except ValueError:
+            continue
+    return out
+
+
+def entry_compare(a, b, dtype):
+    """compare() of two runs' all_outputs.npz predictions, and for fp32
+    their metric rows at rel 1e-4 (NaN where NaN)."""
+    import torch
+    pa = np.load(a["all_outputs.npz"])
+    pb = np.load(b["all_outputs.npz"])
+    ok, st = compare(torch.from_numpy(pa["pred"]),
+                     torch.from_numpy(pb["pred"]), dtype)
+    ok &= bool(np.array_equal(pa["gt"], pb["gt"]))
+    st["above_half"] = float((pb["pred"] > 0.5).mean())
+    if dtype == torch.float32:
+        ra, rb = entry_rows(a["test_output.csv"]), entry_rows(
+            b["test_output.csv"])
+        worst = 0.0
+        for k in rb:
+            x, y = ra[k], rb[k]
+            same_nan = np.array_equal(np.isnan(x), np.isnan(y))
+            m = ~np.isnan(y)
+            err = np.abs(x[m] - y[m]) / np.maximum(np.abs(y[m]), 1e-30)
+            worst = max(worst, float(err.max(initial=0.0)))
+            ok &= same_nan
+        st["rows_max_rel"] = worst
+        ok &= worst <= 1e-4
+    return ok, st
+
+
+def entry_phase(card):
+    """Phase 10, the serving entry point (module note): the failures and
+    the launch counts of the bf16 kernel run."""
+    import os
+    import tempfile
+    import torch
+    from multimodal_fusion_fpn_torch.data.synthetic import \
+        make_synthetic_hrf
+    t0 = time.time()
+    failures = []
+
+    def check(ok, rec, what):
+        emit(dict(rec, ok=bool(ok)))
+        if not ok:
+            failures.append(f"entry point: {what}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+        big = make_synthetic_hrf(j("big"), n_patients=1,
+                                 visits_per_patient=ENTRY_VISITS,
+                                 d=ENTRY_OCT[0], h=ENTRY_OCT[1],
+                                 w=ENTRY_OCT[2], enface_h=ENTRY_SLO[0],
+                                 enface_w=ENTRY_SLO[1], seed=21)
+        small = make_synthetic_hrf(j("small"), n_patients=1,
+                                   visits_per_patient=ENTRY_SMALL_VISITS,
+                                   d=ENTRY_SMALL_OCT[0],
+                                   h=ENTRY_SMALL_OCT[1],
+                                   w=ENTRY_SMALL_OCT[2],
+                                   enface_h=ENTRY_SMALL_SLO[0],
+                                   enface_w=ENTRY_SMALL_SLO[1], seed=22)
+        entry_members(big, j("ckpt"))
+        entry_members(big, j("ckpt_fault"), fault=True)
+        emit({"phase": "entry_setup", "seconds": time.time() - t0})
+
+        # bf16: kernels (launches), plain, kernels timed, kernels profiled
+        runs = {}
+        for name, kern, prof in (("kernels", True, False),
+                                 ("plain", False, False),
+                                 ("kernels_timed", True, False),
+                                 ("kernels_profiled", True, True)):
+            runs[name] = entry_run(big, "bf16", j(name), j("ckpt"),
+                                   kernels=kern, profile=prof)
+        info, files, launches, _ = runs["kernels"]
+        launches = {k: launches.get(k, 0) for k in KERNELS}
+        want = {k: ENTRY_LAUNCHES.get(k, 0) for k in KERNELS}
+        check(launches == want, {"phase": "entry_launches",
+                                 "launches": launches, "expected": want},
+              f"launches {launches} != {want}")
+        same_tree = all(sorted(r[1]) == sorted(files)
+                        for r in runs.values())
+        n_img = ENTRY_VISITS
+        per_image = [f for f in files if f.endswith("/info.json")]
+        with open(files["global_metrics.json"]) as f:
+            gm = json.load(f)
+        check(same_tree and len(per_image) == n_img and gm == {}
+              and all(r[0]["skipped"] for r in runs.values()),
+              {"phase": "entry_tree", "files": len(files),
+               "images": len(per_image), "global_metrics": gm,
+               "skipped": [r[0]["skipped"] for r in runs.values()]},
+              "the bf16 runs' result trees differ, or do not skip")
+        ok, st = entry_compare(files, runs["plain"][1], torch.bfloat16)
+        check(ok, {"phase": "entry_bf16_vs_plain", **st},
+              "bf16 predictions, kernels vs plain")
+        for name in ("kernels_timed", "plain"):
+            info = runs[name][0]
+            tm = info["timing"]
+            emit({"phase": "entry_rate", "run": name, "images": n_img,
+                  "eval_batch": ENTRY_BATCH,
+                  "img_per_s_entry": n_img / info["seconds"],
+                  "img_per_s_evaluate": n_img / (info["evaluate"]
+                                                 - tm["load"]),
+                  "seconds_entry": info["seconds"],
+                  "seconds_evaluate": info["evaluate"],
+                  "seconds_split": tm,
+                  "seconds_outside_evaluate": info["seconds"]
+                  - info["evaluate"], "card": card})
+        info, _, _, busy = runs["kernels_profiled"]
+        timed = runs["kernels_timed"][0]
+        emit({"phase": "entry_busy", "device_busy_ms": busy,
+              "seconds_profiled_run": info["seconds"],
+              "busy_share_of_profiled_run": busy / 1e3 / info["seconds"],
+              "busy_share_of_timed_run": busy / 1e3 / timed["seconds"],
+              "busy_share_of_timed_evaluate": busy / 1e3 / (
+                  timed["evaluate"] - timed["timing"]["load"]),
+              "card": card})
+
+        # fp32 on two small visits: the card against the CPU, and the
+        # planted fault against the card
+        entry_members(small, j("ckpt_small"))
+        entry_members(small, j("ckpt_small_fault"), fault=True)
+        card_run = entry_run(small, "fp32", j("fp32_card"), j("ckpt_small"))
+        cpu_run = entry_run(small, "fp32", j("fp32_cpu"), j("ckpt_small"),
+                            device="cpu")
+        fault_run = entry_run(small, "fp32", j("fp32_fault"),
+                              j("ckpt_small_fault"))
+        ok, st = entry_compare(card_run[1], cpu_run[1], torch.float32)
+        check(ok and sorted(card_run[1]) == sorted(cpu_run[1])
+              and card_run[0]["skipped"] and cpu_run[0]["skipped"],
+              {"phase": "entry_fp32_card_vs_cpu",
+               "images": ENTRY_SMALL_VISITS, **st},
+              "fp32 card vs CPU")
+        agree, st = entry_compare(fault_run[1], card_run[1], torch.float32)
+        check(not agree, {"phase": "entry_planted_fault",
+                          "conv": ENTRY_FAULT, "caught": not agree, **st},
+              "the planted fault (a zeroed conv) was not caught")
+    emit({"phase": "entry_done", "ok": not failures,
+          "seconds": time.time() - t0, "card": card})
+    return failures, launches
+
+
 def per_step(records, field):
     return sum(r[field] * r["calls_per_step"] for r in records)
 
@@ -2574,7 +2863,11 @@ def main() -> int:
     # --- 9. the rest of the zoo ------------------------------------------
     failures += zoo_phase(configs, card)
 
-    # --- 10. summary ------------------------------------------------------
+    # --- 10. the serving entry point --------------------------------------
+    entry_failures, main_launches["entry"] = entry_phase(card)
+    failures += entry_failures
+
+    # --- 11. summary ------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
         prefix = RECORD_PREFIX.get(path, "")
@@ -2594,6 +2887,7 @@ def main() -> int:
             "launches_train_step": main_launches["train"][name],
             "launches_ensemble_step": main_launches["ensemble"][name],
             "launches_bucketed_serving": main_launches["bucketed"][name],
+            "launches_entry_point": main_launches["entry"][name],
             "max_abs_err": max(r["max_err"] for r in fp32),
             "ms": per_step(main, "kernel_ms"),
             "plain_ms": per_step(main, "plain_ms"),

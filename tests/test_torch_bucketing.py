@@ -257,24 +257,28 @@ def bucketed_case(tiny_spec):
         {k: jnp.asarray(v) for k, v in batch.items()}, train=False))
     params, stats = random_trees(template, seed=8)
     jb = {k: jnp.asarray(v) for k, v in padded.items()}
-    compiled = {}
-    # trace both modes in turn (the fused mode is a global of the JAX
-    # package), compile them side by side
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        prev = jblocks._FUSED_MODE
-        try:
-            for crop, mode in (("relative_2d_max", "on"),
-                               ("relative_2d", "off")):
-                jblocks.set_fused_stage_mode(mode)
-                jm = jbuild(_cfg(crop), spec=tiny_spec, remat=False)
-                lowered = jax.jit(lambda p, s, b, jm=jm: jm.apply(
-                    {"params": p, "batch_stats": s}, b,
-                    train=False)).lower(params, stats, jb)
-                compiled[crop] = pool.submit(compile_ref, lowered)
-        finally:
-            jblocks.set_fused_stage_mode(prev)
-        ref = {crop: np.asarray(c.result()(params, stats, jb)["prediction"])
-               for crop, c in compiled.items()}
+    # both models traced into one function (the fused mode, a global of
+    # the JAX package, set before each), compiled once: XLA computes what
+    # they share once
+    cases = (("relative_2d_max", "on"), ("relative_2d", "off"))
+    models = [jbuild(_cfg(crop), spec=tiny_spec, remat=False)
+              for crop, _ in cases]
+
+    def predictions(p, s, b):
+        out = []
+        for (_, mode), jm in zip(cases, models):
+            jblocks.set_fused_stage_mode(mode)
+            out.append(jm.apply({"params": p, "batch_stats": s}, b,
+                                train=False)["prediction"])
+        return out
+
+    prev = jblocks._FUSED_MODE
+    try:
+        lowered = jax.jit(predictions).lower(params, stats, jb)
+    finally:
+        jblocks.set_fused_stage_mode(prev)
+    ref = {crop: np.asarray(o) for (crop, _), o in zip(
+        cases, compile_ref(lowered)(params, stats, jb))}
     return dict(batch=batch, padded=padded, spec=ArchSpec(tiny_spec.channels),
                 sd=state_dict_from_jax(params, stats), ref=ref,
                 template=template)

@@ -8,7 +8,6 @@ atol = 1e-4 (``tests/test_full_model_parity.py``); bf16 is compared by
 cosine and norm ratio against the fp32 JAX result.
 """
 
-import concurrent.futures
 
 import jax
 import jax.numpy as jnp
@@ -116,24 +115,27 @@ def _zdim_case(n):
 @pytest.fixture(scope="module")
 def block_refs(fused_on):
     """(params, stats, JAX output) of every stage and projection-head case
-    below: traced one after another, compiled side by side in threads."""
+    below: all traced into one function, compiled once (one compile of
+    the lot costs less than the twelve apart)."""
     cases = ([(("stage",) + c, _stage_case(*c), c[0] * 100 + c[2])
               for c in STAGE_CASES]
              + [(("zdim", n), _zdim_case(n), 10 + n) for n in ZDIM_CASES])
-    pending = {}
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        for key, (x, jm), seed in cases:
-            template = jax.eval_shape(
-                lambda jm=jm, x=x: jm.init(jax.random.PRNGKey(0),
-                                           jnp.asarray(x)))
-            params, stats = random_trees(template, seed=seed)
-            lowered = jax.jit(lambda p, s, a, jm=jm: jm.apply(
-                {"params": p, "batch_stats": s}, a, train=False)).lower(
-                    params, stats, jnp.asarray(x))
-            pending[key] = (pool.submit(compile_ref, lowered), params,
-                            stats, x)
-        return {k: (p, s, np.asarray(c.result()(p, s, jnp.asarray(x))))
-                for k, (c, p, s, x) in pending.items()}
+    modules, args = [], []
+    for key, (x, jm), seed in cases:
+        template = jax.eval_shape(
+            lambda jm=jm, x=x: jm.init(jax.random.PRNGKey(0),
+                                       jnp.asarray(x)))
+        params, stats = random_trees(template, seed=seed)
+        modules.append(jm)
+        args.append((params, stats, jnp.asarray(x)))
+
+    def outputs(args):
+        return [jm.apply({"params": p, "batch_stats": s}, a, train=False)
+                for jm, (p, s, a) in zip(modules, args)]
+
+    outs = compile_ref(jax.jit(outputs).lower(args))(args)
+    return {key: (p, s, np.asarray(o))
+            for (key, _, _), (p, s, _), o in zip(cases, args, outs)}
 
 
 @pytest.mark.parametrize("ndim,ci,co", STAGE_CASES)
@@ -189,27 +191,33 @@ def hybrid_weights():
 @pytest.fixture(scope="module")
 def jax_hybrid(hybrid_weights):
     """JAX FPNHybridFusion predictions per (alignment, fused mode), for
-    both alignments in fused modes 'on' and 'auto': traced one after
-    another (the fused mode is a global of the JAX package), compiled side
-    by side in threads."""
+    both alignments in fused modes 'on' and 'auto': the four models traced
+    into one function (the fused mode, a global of the JAX package, set
+    before each is traced) and compiled once.  XLA merges what the four
+    share (in one fused mode both alignments run the same encoders on the
+    same inputs), so one compile costs about half of the four apart."""
     batch, _, params, stats = hybrid_weights
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    compiled = {}
+    keys = [(crop, mode) for crop in ("relative_2d_max", "relative_2d")
+            for mode in ("on", "auto")]
+    models = {k: jbuild(_cfg(k[0]), remat=False) for k in keys}
+
+    def predictions(p, s, b):
+        out = []
+        for crop, mode in keys:
+            jblocks.set_fused_stage_mode(mode)
+            out.append(models[(crop, mode)].apply(
+                {"params": p, "batch_stats": s}, b,
+                train=False)["prediction"])
+        return out
+
     prev = jblocks._FUSED_MODE
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        try:
-            for crop in ("relative_2d_max", "relative_2d"):
-                for mode in ("on", "auto"):
-                    jblocks.set_fused_stage_mode(mode)
-                    jm = jbuild(_cfg(crop), remat=False)
-                    lowered = jax.jit(lambda p, s, b, jm=jm: jm.apply(
-                        {"params": p, "batch_stats": s}, b,
-                        train=False)["prediction"]).lower(params, stats, jb)
-                    compiled[(crop, mode)] = pool.submit(compile_ref, lowered)
-        finally:
-            jblocks.set_fused_stage_mode(prev)
-        return {k: np.asarray(c.result()(params, stats, jb))
-                for k, c in compiled.items()}
+    try:
+        lowered = jax.jit(predictions).lower(params, stats, jb)
+    finally:
+        jblocks.set_fused_stage_mode(prev)
+    outs = compile_ref(lowered)(params, stats, jb)
+    return {k: np.asarray(o) for k, o in zip(keys, outs)}
 
 
 def port_hybrid(hybrid_weights, crop, dtype=torch.float32):

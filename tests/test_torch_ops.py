@@ -9,7 +9,6 @@ kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
 """
 
 import ast
-import concurrent.futures
 import inspect
 import os
 
@@ -107,9 +106,10 @@ def _jax_cascade(x, s, b, w, relu, impl, bs=8):
 def jax_forwards(rollfree_calls):
     """The JAX fused conv's output for every case of the two forward tests
     below, keyed ('conv', case, relu, affine, impl) or ('cascade', affine,
-    relu, impl): traced one after another (the Pallas cases in interpret
-    mode, counted by ``rollfree_calls``: none takes a roll-free body),
-    compiled side by side in threads.  The roll-free forward's references
+    relu, impl): all traced into one function (the Pallas cases in
+    interpret mode, counted by ``rollfree_calls``: none takes a roll-free
+    body), compiled once (one compile of the lot costs less than one for
+    each).  The roll-free forward's references
     come with its backward's (``jax_vjps``)."""
     jobs = [(("conv", c, r, a, i), _fwd_case(c, r, a),
              lambda x, s, b, w, r=r, i=i: _jax_fused(x, s, b, w, r, 8, i))
@@ -118,19 +118,22 @@ def jax_forwards(rollfree_calls):
     jobs += [(("cascade", a, r, i), _cascade_case(a, r),
               lambda x, s, b, w, r=r, i=i: _jax_cascade(x, s, b, w, r, i))
              for a, r in CASCADE_MODES for i in ("ref", "pallas")]
-    pending = {}
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        for key, inputs, fn in jobs:
-            args = [None if a is None else jnp.asarray(a) for a in inputs]
+    def outputs(all_args):
+        outs = []
+        for (key, _, fn), args in zip(jobs, all_args):
             with rollfree_calls.trace(key, False):
                 jfc.set_interpret_mode(key[-1] == "pallas")
                 try:
-                    lowered = jax.jit(fn).lower(*args)
+                    outs.append(fn(*args))
                 finally:
                     jfc.set_interpret_mode(False)
-            pending[key] = (pool.submit(compile_ref, lowered), args)
-        return {k: np.asarray(c.result()(*args), np.float32)
-                for k, (c, args) in pending.items()}
+        return outs
+
+    all_args = [[None if a is None else jnp.asarray(a) for a in inputs]
+                for _, inputs, _ in jobs]
+    outs = compile_ref(jax.jit(outputs).lower(all_args))(all_args)
+    return {key: np.asarray(o, np.float32)
+            for (key, _, _), o in zip(jobs, outs)}
 
 
 @pytest.mark.parametrize("impl", ["ref", "pallas"])
@@ -302,8 +305,8 @@ def jax_vjps(rollfree_calls):
     affine, relu, stats, impl, split): traced one after another (the Pallas
     cases in interpret mode, impl 'rollfree' the Pallas ones with
     MMF_ROLLFREE=1, counted by ``rollfree_calls``, the split ones with
-    MMF_MERGED_BWD=0, all read while tracing), compiled side by side in
-    threads."""
+    MMF_MERGED_BWD=0, all read while tracing), all traced into one
+    function, compiled once."""
     # the costliest compiles first, so they overlap the other traces
     cases = [((1, 3, 3), 1, a, r, st, "rollfree", False)
              for a, r, st in RF_BWD_CASES]
@@ -312,16 +315,20 @@ def jax_vjps(rollfree_calls):
     cases += [(k, sz, a, r, st, impl, False) for k, sz in BWD_CASES
               for a, r in _BWD_MODES for st in (False, True)
               for impl in _BWD_IMPLS]
-    pending = {}
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        for case in cases:
+    all_args = []
+    for case in cases:
+        kshape, stride_z, affine, relu, stats, impl, split = case
+        x, s, b, w, g, gs1, gs2 = _bwd_inputs(
+            kshape, stride_z, affine,
+            _bwd_seed(kshape, stride_z, affine, stats, split),
+            Y=RF_Y if impl == "rollfree" else 4)
+        all_args.append([jnp.asarray(a) if a is not None else None
+                         for a in (x, w, s, b, g, gs1, gs2)])
+
+    def outputs(all_args):
+        outs = []
+        for case, args in zip(cases, all_args):
             kshape, stride_z, affine, relu, stats, impl, split = case
-            x, s, b, w, g, gs1, gs2 = _bwd_inputs(
-                kshape, stride_z, affine,
-                _bwd_seed(kshape, stride_z, affine, stats, split),
-                Y=RF_Y if impl == "rollfree" else 4)
-            args = [jnp.asarray(a) if a is not None else None
-                    for a in (x, w, s, b, g, gs1, gs2)]
             pallas = impl != "ref"
             fn = _jax_conv_vjp(4, 16, 8, relu, stride_z, stats,
                                "pallas" if pallas else "ref", affine)
@@ -331,18 +338,19 @@ def jax_vjps(rollfree_calls):
                     mp.setenv("MMF_MERGED_BWD", "0")
                 jfc.set_interpret_mode(pallas)
                 try:
-                    lowered = jax.jit(fn).lower(*args)
+                    outs.append(fn(*args))
                 finally:
                     jfc.set_interpret_mode(False)
-            pending[case] = (pool.submit(compile_ref, lowered), args)
-        refs = {}
-        for case, (compiled, args) in pending.items():
-            out, grads = compiled.result()(*args)
-            out = [np.asarray(o) for o in (out if case[4] else (out,))]
-            grads = [np.asarray(a) for a in grads]
-            y, s1, s2 = (out + [None, None])[:3]
-            ds, db = grads[2:] if case[2] else (None, None)
-            refs[case] = (y, s1, s2, grads[0], ds, db, grads[1])
+        return outs
+
+    refs = {}
+    outs = compile_ref(jax.jit(outputs).lower(all_args))(all_args)
+    for case, (out, grads) in zip(cases, outs):
+        out = [np.asarray(o) for o in (out if case[4] else (out,))]
+        grads = [np.asarray(a) for a in grads]
+        y, s1, s2 = (out + [None, None])[:3]
+        ds, db = grads[2:] if case[2] else (None, None)
+        refs[case] = (y, s1, s2, grads[0], ds, db, grads[1])
     return refs
 
 
@@ -788,6 +796,8 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Nor a library that the card's machine lacks and the JAX package's
+    host code uses: imageio, PIL, scikit-learn, pandas, msgpack, flax."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = [os.path.join(root, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(root,
@@ -798,7 +808,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax",
-                               "multimodal_fusion_fpn_tpu"), (path, mod)
+                               "multimodal_fusion_fpn_tpu", "imageio",
+                               "PIL", "sklearn", "pandas", "msgpack"), (
+                path, mod)
 
 
 def _passes_tensor_cores(path):
