@@ -209,12 +209,33 @@ Phases, each of which fails the run on any error:
    rows at rel 1e-4; the same with the first member's ENTRY_FAULT conv
    zeroed must fail.  Every run's result tree has the same files, and a
    second run of each skips.
-11. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+11. VRC serving (``vrc_phase``): first the host seconds of each global
+   pixel metric (``metrics/global_metrics.py``) over VRC_GM_PIXELS seeded
+   pixels; then the port's ``validate_ensemble.run`` over a synthetic VRC
+   tree written by the port's ``make_synthetic_vrc`` (ENTRY_VISITS visits
+   of phase 10's OCT, its lr2 twin, the SLO and vs.vmirror at VRC_SLO) on
+   two paths, each with phase 10's seeded members and bias shift for its
+   net: (a) ``vrc``, FPNHybridFusion, ``relative_2d_max``, SLO, the
+   OCT-grid mask ``sq_proj_dil``; (b) ``vrc_lr2_comp_only``, FPN2D,
+   ``--crop none``.  Per path, bf16 with ``--eval-batch 4
+   --save-all-outputs``: on the kernels (the launch counts must be
+   VRC_LAUNCHES exactly), with ``kernels=False`` (``all_outputs.npz`` held
+   by phase 3's bf16 rule), on the kernels again (timed as in phase 10,
+   with the seconds of ``compute_global_metrics``); every result tree the
+   same files, path (a)'s ``global_metrics.json`` the seven finite metrics
+   and path (b)'s ``{}``, and a second run of each skips.  fp32 on two
+   small visits on the card and on the CPU: predictions within 1e-4 *
+   max|p|, the rows at rel 1e-4, and for (a) the global metrics within
+   1e-6 plus what the pixels that the two runs rank or threshold
+   differently can move (``vrc_global_compare``); path (a) with the first
+   member's ENTRY_FAULT conv zeroed must fail.
+12. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8, and beside them the entry point's
-   bf16 run of phase 10, ``launches_entry_point``; max-abs-err of its fp32
-   comparisons;
+   bf16 run of phase 10, ``launches_entry_point``, and phase 11's bf16
+   kernel runs, ``launches_vrc`` (both paths) and ``launches_vrc_paths``
+   (each); max-abs-err of its fp32 comparisons;
    per-step times summed over the bf16 B=4 calls (for the bucketed paths
    one bucketed ensemble step of 5 members, where the launches count the
    serving run's SERVE_IMAGES / SERVE_BATCH steps), for the tensor-core
@@ -386,6 +407,32 @@ ENTRY_LAUNCHES = {"fused_conv_dyn": 350, "fused_conv_dyn_ky3": 60,
 # the conv that the planted fault zeroes in the first member (a stage-2
 # conv of the 3D net, on the kernel path)
 ENTRY_FAULT = "resensnet.conv2.0.convBlock.1.0.weight"
+
+# phase 11: VRC serving over synthetic VRC trees (the port's
+# make_synthetic_vrc).  Phase 10's OCT (48, 496, 176) with its lr2 twin
+# (48, 248, 176); the SLO and its vs.vmirror mask at (192, 176), the
+# multiple of the 48 B-scans nearest phase 10's 208 rows (the writer
+# upsamples the OCT-grid mask by a whole factor).  Path (a): ``vrc``, the
+# hybrid net on the OCT-grid mask (sq_proj_dil); path (b):
+# ``vrc_lr2_comp_only``, FPN2D on the SLO alone (vs.vmirror).
+VRC_SLO = (192, 176)
+VRC_SMALL_SLO = (80, 48)
+VRC_PATHS = {
+    "a": ["--training-dataset", "vrc", "--model", "FPNHybridFusion",
+          "--crop", "relative_2d_max", "--fusion-modality", "slo",
+          "--mask-variant", "sq_proj_dil"],
+    "b": ["--training-dataset", "vrc_lr2_comp_only", "--model", "FPN2D",
+          "--crop", "none", "--fusion-modality", "slo"]}
+# launches of one bf16 run of each path: 2 dispatches of 4 images x 5
+# members x the extents instances of its net's per-member calls (a: phase
+# 10's; b: FPN2D's 13 K7 (1,3,3), 3 K7 (3,1,1), 4 K5f, 2 K10)
+VRC_LAUNCHES = {
+    "a": ENTRY_LAUNCHES,
+    "b": {"fused_conv_dyn": 130, "fused_conv_dyn_ky3": 30,
+          "max_pool3d_cl": 40, "banded_conv_dyn": 20}}
+VRC_GLOBAL = ["AUROC", "AUPR", "Sens", "Spec", "Acc", "AP", "F1"]
+# the host seconds of the seven global metrics over this many seeded pixels
+VRC_GM_PIXELS = 4_000_000
 
 
 def emit(obj):
@@ -2179,12 +2226,13 @@ def entry_argv(paths, precision):
             "--eval-batch", str(ENTRY_BATCH), "--save-all-outputs"]
 
 
-def entry_members(paths, ckpt_dir, fault=False):
+def entry_members(paths, ckpt_dir, fault=False, argv=None):
     """Five seeded members (``member_state_dicts``), each with its final
     bias moved by minus the median logit of its fp32 prediction on the
     tree's first visit (so that the thresholded artifacts are not empty),
     written to ``ckpt_dir`` as ``epoch=*.ckpt``; with ``fault`` the first
-    member's ENTRY_FAULT conv is zeroed."""
+    member's ENTRY_FAULT conv is zeroed.  ``argv`` names the model and the
+    dataset (phase 10's by default)."""
     import os
     import torch
     from multimodal_fusion_fpn_torch.config import parse_config
@@ -2193,8 +2241,8 @@ def entry_members(paths, ckpt_dir, fault=False):
         create_val_dataloader
     from multimodal_fusion_fpn_torch.models.zoo import build_model
     from multimodal_fusion_fpn_torch.train.checkpoints import save_checkpoint
-    cfg = parse_config(entry_argv(paths, "fp32"))
-    opt = opt_factory["hrf_fusion"](cfg)
+    cfg = parse_config(argv or entry_argv(paths, "fp32"))
+    opt = opt_factory[cfg.training_dataset](cfg)
     with open(paths["split"]) as f:
         ids = json.load(f)["test"]
     batch = next(iter(create_val_dataloader(opt, ids,
@@ -2216,17 +2264,18 @@ def entry_members(paths, ckpt_dir, fault=False):
 
 
 def entry_run(paths, precision, workdir, ckpt_dir, device="cuda",
-              kernels=True, profile=False):
-    """One run of the entry point in its own working directory, its
-    members linked from ``ckpt_dir``: (the run's info, its files, the
-    launch counts, the profiler's busy ms or None)."""
+              kernels=True, profile=False, argv=None):
+    """One run of the entry point (on ``argv``, phase 10's by default) in
+    its own working directory, its members linked from ``ckpt_dir``: (the
+    run's info, its files, the launch counts, the profiler's busy ms or
+    None)."""
     import os
     import torch
     from multimodal_fusion_fpn_torch import ops
     from multimodal_fusion_fpn_torch import paths as path_utils
     from multimodal_fusion_fpn_torch import validate_ensemble
     from multimodal_fusion_fpn_torch.config import parse_config
-    argv = entry_argv(paths, precision)
+    argv = argv or entry_argv(paths, precision)
     model_path = os.path.join(workdir, path_utils.get_model_path(
         parse_config(argv), os.path.join(paths["oct"], "split")))
     os.makedirs(model_path)
@@ -2415,6 +2464,169 @@ def entry_phase(card):
                           "conv": ENTRY_FAULT, "caught": not agree, **st},
               "the planted fault (a zeroed conv) was not caught")
     emit({"phase": "entry_done", "ok": not failures,
+          "seconds": time.time() - t0, "card": card})
+    return failures, launches
+
+
+def vrc_argv(paths, path, precision):
+    """The entry point's argv for path ``path`` of phase 11 on a synthetic
+    VRC tree, at the ini widths."""
+    return VRC_PATHS[path] + [
+        "--version", "chip_smoke", "--data-root", paths["oct"],
+        "--split-name", "split", "--precision", precision,
+        "--eval-batch", str(ENTRY_BATCH), "--save-all-outputs"]
+
+
+def vrc_tree(root, visits, oct_shape, slo_shape, seed):
+    from multimodal_fusion_fpn_torch.data.synthetic import \
+        make_synthetic_vrc
+    return make_synthetic_vrc(root, n_patients=1, visits_per_patient=visits,
+                              d=oct_shape[0], h=oct_shape[1],
+                              w=oct_shape[2], enface_h=slo_shape[0],
+                              enface_w=slo_shape[1], seed=seed)
+
+
+def vrc_global_compare(a, b):
+    """Two runs' global_metrics.json (``a`` against ``b``), each metric
+    within 1e-6 plus, for every pixel that the two runs' predictions rank
+    or threshold differently, 1 / (the fewer of the positive and the
+    negative pixels): the most such a pixel can move any of the seven."""
+    ga, gb = (json.load(open(f["global_metrics.json"])) for f in (a, b))
+    pa = np.load(a["all_outputs.npz"])["pred"]
+    pb, gt = (np.load(b["all_outputs.npz"])[k] for k in ("pred", "gt"))
+    moved = int(np.count_nonzero(np.argsort(pa, kind="stable")
+                                 != np.argsort(pb, kind="stable"))
+                + np.count_nonzero((pa >= 0.5) != (pb >= 0.5)))
+    pos = int(np.count_nonzero(gt == 1))
+    tol = 1e-6 + moved / max(1, min(pos, gt.size - pos))
+    diff = {k: abs(ga[k] - gb[k]) for k in gb}
+    ok = list(ga) == list(gb) == VRC_GLOBAL and all(
+        d <= tol for d in diff.values())
+    return ok, {"global_diff": diff, "global_tol": tol,
+                "pixels_moved": moved, "pixels": int(gt.size),
+                "positives": pos}
+
+
+def vrc_global_host_seconds():
+    """The host seconds of each global metric over VRC_GM_PIXELS seeded
+    pixels (scores with runs of ties, a third of them positive)."""
+    from multimodal_fusion_fpn_torch.metrics import global_metrics as G
+    rng = np.random.default_rng(31)
+    gt = (rng.random(VRC_GM_PIXELS) < 0.3).astype(np.float64)
+    pred = np.round(np.clip(0.3 * gt + 0.7 * rng.random(VRC_GM_PIXELS),
+                            0, 1) * 4096) / 4096
+    out = {}
+    for name in VRC_GLOBAL:
+        t0 = time.perf_counter()
+        getattr(G, name)().calculate(gt, pred)
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def vrc_phase(card):
+    """Phase 11, VRC serving (module note): the failures and the launch
+    counts of each path's bf16 kernel run."""
+    import os
+    import tempfile
+    import torch
+    t0 = time.time()
+    failures = []
+    launches = {}
+
+    def check(ok, rec, what):
+        emit(dict(rec, ok=bool(ok)))
+        if not ok:
+            failures.append(f"vrc: {what}")
+
+    gm_host = vrc_global_host_seconds()
+    emit({"phase": "vrc_global_metrics_host", "pixels": VRC_GM_PIXELS,
+          "seconds": gm_host, "seconds_total": sum(gm_host.values()),
+          "card": card})
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+        big = vrc_tree(j("big"), ENTRY_VISITS, ENTRY_OCT, VRC_SLO, 41)
+        small = vrc_tree(j("small"), ENTRY_SMALL_VISITS, ENTRY_SMALL_OCT,
+                         VRC_SMALL_SLO, 42)
+        for path in VRC_PATHS:
+            entry_members(big, j(f"ckpt_{path}"),
+                          argv=vrc_argv(big, path, "fp32"))
+            entry_members(small, j(f"ckpt_small_{path}"),
+                          argv=vrc_argv(small, path, "fp32"))
+        entry_members(small, j("ckpt_small_fault"), fault=True,
+                      argv=vrc_argv(small, "a", "fp32"))
+        emit({"phase": "vrc_setup", "seconds": time.time() - t0})
+
+        for path in VRC_PATHS:
+            runs = {}
+            for name, kern in (("kernels", True), ("plain", False),
+                               ("kernels_timed", True)):
+                runs[name] = entry_run(
+                    big, "bf16", j(f"{path}_{name}"), j(f"ckpt_{path}"),
+                    kernels=kern, argv=vrc_argv(big, path, "bf16"))
+            info, files, got, _ = runs["kernels"]
+            got = {k: got.get(k, 0) for k in KERNELS}
+            want = {k: VRC_LAUNCHES[path].get(k, 0) for k in KERNELS}
+            launches[path] = got
+            check(got == want, {"phase": "vrc_launches", "path": path,
+                                "launches": got, "expected": want},
+                  f"({path}) launches {got} != {want}")
+            with open(files["global_metrics.json"]) as f:
+                gm = json.load(f)
+            per_image = [f for f in files if f.endswith("/info.json")]
+            check(all(sorted(r[1]) == sorted(files) for r in runs.values())
+                  and len(per_image) == ENTRY_VISITS
+                  and list(gm) == (VRC_GLOBAL if path == "a" else [])
+                  and all(np.isfinite(v) for v in gm.values())
+                  and all(r[0]["skipped"] for r in runs.values()),
+                  {"phase": "vrc_tree", "path": path, "files": len(files),
+                   "images": len(per_image), "global_metrics": gm,
+                   "skipped": [r[0]["skipped"] for r in runs.values()]},
+                  f"({path}) the bf16 runs' result trees differ, lack "
+                  "their global metrics, or do not skip")
+            ok, st = entry_compare(files, runs["plain"][1], torch.bfloat16)
+            check(ok, {"phase": "vrc_bf16_vs_plain", "path": path, **st},
+                  f"({path}) bf16 predictions, kernels vs plain")
+            for name in ("kernels_timed", "plain"):
+                info = runs[name][0]
+                tm = info["timing"]
+                emit({"phase": "vrc_rate", "path": path, "run": name,
+                      "images": ENTRY_VISITS, "eval_batch": ENTRY_BATCH,
+                      "img_per_s_entry": ENTRY_VISITS / info["seconds"],
+                      "img_per_s_evaluate": ENTRY_VISITS / (
+                          info["evaluate"] - tm["load"]),
+                      "seconds_entry": info["seconds"],
+                      "seconds_evaluate": info["evaluate"],
+                      "seconds_split": tm,
+                      "seconds_global_metrics": info["global_metrics"],
+                      "seconds_outside_evaluate": info["seconds"]
+                      - info["evaluate"], "card": card})
+
+            # fp32 on two small visits: the card against the CPU
+            card_run = entry_run(small, "fp32", j(f"{path}_fp32_card"),
+                                 j(f"ckpt_small_{path}"),
+                                 argv=vrc_argv(small, path, "fp32"))
+            cpu_run = entry_run(small, "fp32", j(f"{path}_fp32_cpu"),
+                                j(f"ckpt_small_{path}"), device="cpu",
+                                argv=vrc_argv(small, path, "fp32"))
+            ok, st = entry_compare(card_run[1], cpu_run[1], torch.float32)
+            ok_g, st_g = vrc_global_compare(card_run[1], cpu_run[1]) \
+                if path == "a" else (True, {})
+            check(ok and ok_g and sorted(card_run[1]) == sorted(cpu_run[1])
+                  and card_run[0]["skipped"] and cpu_run[0]["skipped"],
+                  {"phase": "vrc_fp32_card_vs_cpu", "path": path,
+                   "images": ENTRY_SMALL_VISITS, **st, **st_g},
+                  f"({path}) fp32 card vs CPU")
+            if path == "a":
+                fault_run = entry_run(small, "fp32", j("a_fp32_fault"),
+                                      j("ckpt_small_fault"),
+                                      argv=vrc_argv(small, "a", "fp32"))
+                agree, st = entry_compare(fault_run[1], card_run[1],
+                                          torch.float32)
+                check(not agree, {"phase": "vrc_planted_fault",
+                                  "conv": ENTRY_FAULT, "caught": not agree,
+                                  **st},
+                      "the planted fault (a zeroed conv) was not caught")
+    emit({"phase": "vrc_done", "ok": not failures,
           "seconds": time.time() - t0, "card": card})
     return failures, launches
 
@@ -2867,7 +3079,11 @@ def main() -> int:
     entry_failures, main_launches["entry"] = entry_phase(card)
     failures += entry_failures
 
-    # --- 11. summary ------------------------------------------------------
+    # --- 11. VRC serving --------------------------------------------------
+    vrc_failures, vrc_launches = vrc_phase(card)
+    failures += vrc_failures
+
+    # --- 12. summary ------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
         prefix = RECORD_PREFIX.get(path, "")
@@ -2888,6 +3104,9 @@ def main() -> int:
             "launches_ensemble_step": main_launches["ensemble"][name],
             "launches_bucketed_serving": main_launches["bucketed"][name],
             "launches_entry_point": main_launches["entry"][name],
+            "launches_vrc": sum(v[name] for v in vrc_launches.values()),
+            "launches_vrc_paths": {p: v[name]
+                                   for p, v in vrc_launches.items()},
             "max_abs_err": max(r["max_err"] for r in fp32),
             "ms": per_step(main, "kernel_ms"),
             "plain_ms": per_step(main, "plain_ms"),

@@ -12,9 +12,10 @@ ensemble inference (:func:`eval.ensemble.make_ensemble_eval_step`), exact
 shape-bucketed serving (:func:`eval.harness.evaluate`), the train step
 (:func:`train.step.make_train_step`), and the serving entry point
 (:mod:`validate_ensemble`, ``python -m
-multimodal_fusion_fpn_torch.validate_ensemble``) over the HRF data
-pipeline (:mod:`data`), the configs, the noise, the checkpoints and the
-harness's artifacts.  Not yet: the VRC dataset, the trainer and its
+multimodal_fusion_fpn_torch.validate_ensemble``) over the HRF and VRC
+data pipelines (:mod:`data`), the configs, the noise, the checkpoints,
+the per-image and global pixel metrics (:mod:`metrics`, without
+scikit-learn) and the harness's artifacts.  Not yet: the trainer and its
 entry point, ``viz.py`` and the data x space mesh.
 """
 

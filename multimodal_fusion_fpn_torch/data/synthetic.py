@@ -1,7 +1,8 @@
 """Synthetic dataset generator in the reference's on-disk layout: the
-port's copy of ``make_synthetic_hrf`` (``multimodal_fusion_fpn_tpu/data/
-synthetic.py``), which writes the same records, its PNGs through the
-port's own encoder (the same pixels, other bytes).
+port's copy of ``make_synthetic_hrf`` and ``make_synthetic_vrc``
+(``multimodal_fusion_fpn_tpu/data/synthetic.py``), which write the same
+records, their PNGs through the port's own encoder (the same pixels,
+other bytes).
 
 Creates an HRF-style dataset tree (the original project's
 ``README.md:21-78``):
@@ -117,3 +118,67 @@ def make_synthetic_hrf(root: str, n_patients: int = 4,
     return {"oct": root,
             "split": join(root, "split.json"),
             "visits": join(root, "hrf_data.json")}
+
+
+def make_synthetic_vrc(root: str, n_patients: int = 4,
+                       visits_per_patient: int = 1,
+                       d: int = 16, h: int = 64, w: int = 32,
+                       enface_h: int = 80, enface_w: int = 32,
+                       seed: int = 0) -> dict:
+    """Write a synthetic VRC-style vessel dataset ('flat' variant layout:
+    per-patient directories, ``vs.vmirror.*.png`` masks on the SLO's grid,
+    ``bscan_size.vs_proj.dil.*.png`` on the OCT's, the ``lr2`` volumes at
+    half the B-scan height) and return its paths dict."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    visits = {}
+    all_patients = []
+    for p in range(n_patients):
+        pid = f"V{p:03d}"
+        all_patients.append(pid)
+        visits[pid] = []
+        pdir = join(root, pid)
+        os.makedirs(join(pdir, "preprocessed_images"), exist_ok=True)
+        for v in range(visits_per_patient):
+            fsid = f"{pid}S{v}"
+            visits[pid].append({"FileSetId": fsid})
+
+            mask = _blob_mask(rng, d, w, n_blobs=5)
+            vol = rng.normal(0.3, 0.1, size=(d, h, w))
+            vol[:, h // 4:h // 2, :] += 0.5 * mask[:, None, :]
+            np.save(join(pdir, f"bscan_flat.{fsid}.npy"),
+                    vol.astype(np.float32))
+            np.save(join(pdir, f"spacing.{fsid}.npy"),
+                    np.array([0.12, 0.004, 0.012]))
+            np.save(join(pdir, "preprocessed_images",
+                         f"bscan_flat.lr2.{fsid}.npy"),
+                    vol[:, ::2, :].astype(np.float32))
+
+            mask_up = np.kron(mask, np.ones((max(1, enface_h // d),
+                                             max(1, enface_w // w))))
+            mask_up = mask_up[:enface_h, :enface_w]
+            imsave(join(pdir, "preprocessed_images",
+                        f"vs.vmirror.{fsid}.png"),
+                   (mask_up * 255).astype(np.uint8))
+            imsave(join(pdir, "preprocessed_images",
+                        f"bscan_size.vs_proj.dil.{fsid}.png"),
+                   (mask * 255).astype(np.uint8))
+            slo = np.clip(rng.normal(0.4, 0.15,
+                                     size=(enface_h, enface_w))
+                          + 0.4 * mask_up, 0, 1)
+            imsave(join(pdir, f"slo.{fsid}.png"),
+                   (slo * 255).astype(np.uint8))
+            imsave(join(pdir, "preprocessed_images",
+                        f"bscan_size.slo.{fsid}.png"),
+                   (slo[:d, :w] * 255).astype(np.uint8))
+
+    with open(join(root, "vrc_data.json"), "w") as fp:
+        json.dump(visits, fp)
+    n_train = max(1, int(0.5 * n_patients))
+    split = {"train": all_patients[:n_train],
+             "val": all_patients[n_train:n_train + 1],
+             "test": all_patients[n_train + 1:] or all_patients[-1:]}
+    with open(join(root, "split.json"), "w") as fp:
+        json.dump(split, fp)
+    return {"oct": root, "split": join(root, "split.json"),
+            "visits": join(root, "vrc_data.json")}

@@ -25,8 +25,9 @@ feeds :func:`evaluate` from the data loader (with the noise of
 ``--noise``), and :func:`get_mean_results` writes ``test_output.csv``,
 ``results_dict.json``, ``mean_results.json`` and ``global_metrics.json``
 without pandas, with pandas' conventions (see :func:`write_csv` and
-:func:`column_stats`).  The VRC global metrics and ``--debug-images``
-(``viz.py``) are not ported yet.
+:func:`column_stats`); ``global_metrics.json`` holds the opt's global
+pixel metrics over ``all_outputs`` (VRC's seven, HRF's none).
+``--debug-images`` (``viz.py``) is not ported yet.
 """
 
 import csv
@@ -406,7 +407,8 @@ def get_final_results_only(output_path: str, metrics_val: Mapping,
 def compute_global_metrics(global_metrics: Mapping, all_outputs: Mapping,
                            output_path: str) -> Dict:
     """``global_metrics.json``: each global metric over every pixel of the
-    run (HRF's set is empty)."""
+    run, ``all_outputs``' ``gt`` against its ``pred`` (HRF's set is empty;
+    VRC's is :mod:`..metrics.global_metrics`)."""
     gm_results = {}
     for gm, metric in global_metrics.items():
         gm_results[gm] = float(metric.calculate(all_outputs["gt"],
@@ -418,14 +420,17 @@ def compute_global_metrics(global_metrics: Mapping, all_outputs: Mapping,
 
 
 def get_mean_results(opt, all_outputs: Mapping, results: List[Mapping],
-                     results_dict: Mapping, output_path: str) -> None:
+                     results_dict: Mapping, output_path: str,
+                     timing: Optional[Dict[str, float]] = None) -> None:
     """``test_output.csv`` and ``results_dict.json``, then the statistics
-    of the CSV read back (``harness.py:340-352``) and the global
-    metrics."""
+    of the CSV read back (``harness.py:340-352``) and the global metrics,
+    their seconds in ``timing["global_metrics"]``."""
     results_file = os.path.join(output_path, "test_output.csv")
     write_csv(results_file, results)
     with open(os.path.join(output_path, "results_dict.json"), "w") as fp:
         json.dump(results_dict, fp, indent=4)
     columns = read_csv_columns(results_file, list(opt.metrics_val))
     get_final_results_only(output_path, opt.metrics_val, columns)
+    t0 = time.perf_counter()
     compute_global_metrics(opt.global_metrics, all_outputs, output_path)
+    _tick(timing, "global_metrics", t0)

@@ -1,11 +1,14 @@
 """Per-image metric accumulators of the evaluation harness, on the host
-(``multimodal_fusion_fpn_tpu/metrics/streaming.py:56-173,237-310``): Dice,
-BCE, Precision, Recall, Hausdorff and Hausdorff95, with the original
-project's conventions:
+(``multimodal_fusion_fpn_tpu/metrics/streaming.py:56-310``): Dice, BCE,
+Precision, Recall, IoU, MSE, L2, L1, WeightedL1, Hausdorff and
+Hausdorff95, with the original project's conventions:
 
   * aggregation is ``np.nanmean`` over every accumulated per-image value;
   * Dice@0.5 is 1 when prediction and ground truth are both empty;
   * Precision and Recall are 1 when their denominator is empty;
+  * IoU is scikit-learn's micro-averaged ``jaccard_score`` over the
+    batch's (n, pixels) indicator matrix, in numpy: 0 (its zero-division
+    value, not 1 as Dice) when both masks are empty;
   * the Hausdorff distances are taken on the mid-plane slice ``[:, 0]``
     with ``voxelspacing=spacing[[0, 2]]`` (hd95 at connectivity 3), are
     NaN when either mask is empty, and a RuntimeError is printed and
@@ -117,6 +120,38 @@ class Recall(_Ratio):
     of_prediction = False
 
 
+class IoU(Metrics):
+    """Jaccard index of the masks above 0.5, micro-averaged over the batch
+    (the original project's ``metrics.py:165-192``): the pixels in both
+    over the pixels in either, 0 when neither has one.  A batch of
+    one-pixel images is scikit-learn's binary case instead, micro-averaged
+    over the labels present: the equal pixels c of n give c / (2n - c)."""
+
+    def __init__(self, output_key: Key = 0, target_key: Key = 0,
+                 slice: int = 0):
+        super().__init__()
+        self.output_key = output_key
+        self.target_key = target_key
+        self.slice = slice
+
+    def calculate_batch(self, ground: dict, predict: dict) -> float:
+        pred = np.asarray(predict[self.output_key])
+        gr = np.asarray(ground[self.target_key])
+        n = pred.shape[0]
+        p = _binary(pred[:, self.slice]).reshape(n, -1)
+        g = _binary(gr[:, self.slice]).reshape(n, -1)
+        if p.shape[1] == 1:
+            same = float(np.count_nonzero(p == g))
+            return same / (2 * n - same)
+        both = float(np.count_nonzero((p == 1) & (g == 1)))
+        either = float(np.count_nonzero((p == 1) | (g == 1)))
+        return both / either if either else 0.0
+
+    def update(self, ground, predict):
+        self.accumulator.extend(
+            np.atleast_1d(self.calculate_batch(ground, predict)).tolist())
+
+
 class BCE(Metrics):
     def __init__(self, output_key: Key = 0, target_key: Key = 0, slice=0):
         super().__init__()
@@ -133,6 +168,65 @@ class BCE(Metrics):
         log_p = np.maximum(np.log(np.maximum(pred, 1e-300)), -100.0)
         log_1p = np.maximum(np.log(np.maximum(1.0 - pred, 1e-300)), -100.0)
         return np.array([-np.mean(gr * log_p + (1.0 - gr) * log_1p)])
+
+
+class MSE(Metrics):
+    def __init__(self, output_key: Key, target_key: Key):
+        super().__init__()
+        self.output_key = output_key
+        self.target_key = target_key
+
+    def calculate_batch(self, ground: dict, predict: dict) -> np.ndarray:
+        result = (np.asarray(predict[self.output_key])
+                  - np.asarray(ground[self.target_key])) ** 2
+        return result.reshape(result.shape[0], -1).mean(axis=1)
+
+
+class L2(Metrics):
+    def __init__(self, output_key: Key = 0, target_key: Key = 0,
+                 slice: int = 0):
+        super().__init__()
+        self.output_key = output_key
+        self.target_key = target_key
+        self.slice = slice
+
+    def calculate_batch(self, ground: dict, predict: dict) -> np.ndarray:
+        return np.array([np.mean((np.asarray(predict[self.output_key])
+                                  - np.asarray(ground[self.target_key]))
+                                 ** 2)])
+
+
+class L1(Metrics):
+    def __init__(self, output_key: Key = 0, target_key: Key = 0,
+                 slice: int = 0):
+        super().__init__()
+        self.output_key = output_key
+        self.target_key = target_key
+        self.slice = slice
+
+    def calculate_batch(self, ground: dict, predict: dict) -> np.ndarray:
+        return np.array([np.mean(np.abs(np.asarray(predict[self.output_key])
+                                        - np.asarray(
+                                            ground[self.target_key])))])
+
+
+class WeightedL1(Metrics):
+    """|prediction - target| times ``ground["weight"]``, averaged over the
+    pixels of positive weight (``mask``) or over all of them."""
+
+    def __init__(self, output_key: Key = 0, target_key: Key = 0,
+                 slice: int = 0, mask: bool = True):
+        super().__init__()
+        self.output_key = output_key
+        self.target_key = target_key
+        self.slice = slice
+        self.mask = mask
+
+    def calculate_batch(self, ground: dict, predict: dict) -> np.ndarray:
+        weight = np.asarray(ground["weight"])
+        l1 = np.abs(np.asarray(predict[self.output_key])
+                    - np.asarray(ground[self.target_key])) * weight
+        return np.array([l1[weight > 0].mean() if self.mask else l1.mean()])
 
 
 class _HausdorffBase(Metrics):

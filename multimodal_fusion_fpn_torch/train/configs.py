@@ -1,11 +1,10 @@
-"""Dataset / experiment configurations: the port's copy of the HRF half of
-``multimodal_fusion_fpn_tpu/train/configs.py`` (the VRC configurations,
-``vrc``, ``vrc_crop``, ``vrc_lr2`` and ``vrc_lr2_comp_only``, wait for the
-port of the VRC dataset).
+"""Dataset / experiment configurations: the port's copy of
+``multimodal_fusion_fpn_tpu/train/configs.py``.
 
 Behavioral parity with the original project's ``training_config.py``: the
-same registry names (``hrf``, ``hrf_fusion``, ``hrf_fusion_comp_only``),
-crop sizes, transform pipelines, loss factory and metric sets.  Unlike
+same registry names (``hrf``, ``hrf_fusion``, ``hrf_fusion_comp_only``,
+``vrc``, ``vrc_crop``, ``vrc_lr2``, ``vrc_lr2_comp_only``), crop sizes,
+transform pipelines, loss factory and metric sets.  Unlike
 the reference — which bakes the global config into *class bodies at import
 time* (``training_config.py:229-233``) — these configs receive the parsed
 config in ``__init__``, so flag handling has no import-order fragility.
@@ -17,6 +16,7 @@ from multimodal_fusion_fpn_torch import losses
 from multimodal_fusion_fpn_torch.metrics import streaming as M
 from multimodal_fusion_fpn_torch.data import transforms as T
 from multimodal_fusion_fpn_torch.data.hrf import HRF_SPEC_Dataset
+from multimodal_fusion_fpn_torch.data.vrc import VRC_Dataset
 from multimodal_fusion_fpn_torch.registry import get_factory_adder
 
 add_class, data_config_factory = get_factory_adder()
@@ -291,3 +291,48 @@ class HRFFusionCompOnlyConfig(HRFFusionConfig):
         data_transforms += self.extra_transforms
         data_transforms += [T.ToTensorDict(transform_keys=keys)]
         return T.Compose(data_transforms), self.get_val_transforms()
+
+
+@add_class("vrc")
+class VRCVConfig(HRFConfig):
+    default_root = "../Multimodal_vrc_vessel"
+    split_file = "split_i2.json"
+    visits_file = "vrc_data.json"
+    preprocessed_bscan: Optional[str] = None
+    oct_variant = "flat"
+
+    def _dataset(self, file_list, transforms, multiplier):
+        return VRC_Dataset(
+            path=self.paths["oct"], patients=file_list,
+            multiplier=multiplier, patches_from_single_image=1,
+            transforms=transforms, get_spacing=True,
+            mask_variant=self.mask_variant, visits_fn=self.paths["visits"],
+            preprocessed_bscan=self.preprocessed_bscan,
+            oct_variant=self.oct_variant, crop=self.config.crop,
+            debug=self.config.DEBUG)
+
+    def train_data(self, training_file_list, data_transform):
+        return self._dataset(training_file_list, data_transform,
+                             self.config.multiplier)
+
+    def val_data(self, validation_file_list, data_transform_val):
+        return self._dataset(validation_file_list, data_transform_val, 1)
+
+
+@add_class("vrc_crop")
+class VRCCropConfig(VRCVConfig):
+    oct_variant = "crop"
+
+
+@add_class("vrc_lr2")
+class VRCVLR2Config(VRCVConfig):
+    """VRC with low-resolution (lr2) preprocessed B-scans."""
+    preprocessed_bscan = "lr2"
+
+
+@add_class("vrc_lr2_comp_only")
+class VRCVLR2CompOnlyConfig(VRCVLR2Config, HRFFusionCompOnlyConfig):
+    """The SLO alone (the comp-only transforms disable ``image``) from the
+    VRC datasets: VRC's data, HRFFusionCompOnlyConfig's transforms, by
+    the order of the bases."""
+    preprocessed_bscan = "lr2"

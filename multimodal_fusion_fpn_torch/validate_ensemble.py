@@ -5,6 +5,10 @@ package's ``validate_ensemble.py``, with its CLI and the logic of its
     python -m multimodal_fusion_fpn_torch.validate_ensemble \\
         --training-dataset hrf_fusion --model FPNHybridFusion \\
         --crop relative_2d_max --fusion-modality slo --version V ...
+    python -m multimodal_fusion_fpn_torch.validate_ensemble \\
+        --training-dataset vrc --model FPNHybridFusion \\
+        --crop relative_2d_max --fusion-modality slo \\
+        --mask-variant sq_proj_dil --version V ...
 
 The training parser gains the 10 eval flags, ``--output-features``,
 ``--eval-shape-bucket`` (default 64) and ``--eval-batch``.  The run seeds
@@ -15,8 +19,15 @@ under ``--exec-test``, loads exactly 5 ``epoch=*.ckpt`` members in sorted
 order, runs them as one ensemble (:mod:`.eval.ensemble`) through the
 harness and writes the result tree: per image ``test.png``,
 ``test_soft.png``, ``mask.png`` and ``info.json``; ``test_output.csv``,
-``results_dict.json``, ``mean_results.json``, ``global_metrics.json``; and
-``all_outputs.npz`` under ``--save-all-outputs``.
+``results_dict.json``, ``mean_results.json``, ``global_metrics.json`` (the
+test dataset's global pixel metrics: for ``vrc`` AUROC, AUPR, Sens, Spec,
+Acc, AP and F1 over every pixel of the run; ``{}`` for the others); and
+``all_outputs.npz`` under ``--save-all-outputs``.  The VRC datasets
+(``vrc``, ``vrc_crop``, ``vrc_lr2``, ``vrc_lr2_comp_only``) take
+``--mask-variant`` / ``--eval-mask-variant`` (``sq_proj_dil``: the
+OCT-grid mask, which the nets with a 3D half predict on; otherwise the
+SLO-grid ``vs.vmirror``, for the en-face net); ``vrc``'s model path
+names the variant (``vrc_<mask variant>``, ``paths.py``).
 
 :func:`run` runs on the card (``device="cuda"``) through the kernels, or
 on the CPU when the caller passes ``device="cpu"``; nothing falls back to
@@ -110,8 +121,9 @@ def run(argv=None, device="cuda", kernels: bool = True):
     """Evaluate the ensemble that ``argv`` names (see the module note).
     Returns {"output_path", "images", "seconds": the wall time from the
     call to the last artifact, "timing": the harness's split of it
-    ("load", "step", "metrics", "artifacts") and "evaluate", the seconds
-    of the harness's loop}."""
+    ("load", "step", "metrics", "artifacts"), "evaluate", the seconds
+    of the harness's loop, and "global_metrics", those of the global pixel
+    metrics}."""
     t_start = time.perf_counter()
     parser = extend_parser(build_parser())
     args = parser.parse_args(argv)
@@ -225,7 +237,9 @@ def run(argv=None, device="cuda", kernels: bool = True):
         kernels=kernels, timing=timing)
     t_eval = time.perf_counter() - t_eval
 
-    get_mean_results(opt, all_outputs, results, results_dict, output_path)
+    tables = {}
+    get_mean_results(opt, all_outputs, results, results_dict, output_path,
+                     timing=tables)
 
     if args.save_all_outputs:
         assert all_outputs["pred"].shape == all_outputs["gt"].shape
@@ -234,7 +248,7 @@ def run(argv=None, device="cuda", kernels: bool = True):
                             gt=all_outputs["gt"])
     return {"output_path": output_path, "images": len(results),
             "seconds": time.perf_counter() - t_start, "evaluate": t_eval,
-            "timing": timing}
+            "timing": timing, "global_metrics": tables["global_metrics"]}
 
 
 if __name__ == "__main__":

@@ -56,7 +56,7 @@ from multimodal_fusion_fpn_torch.weights import (init_state_dict,
                                                  state_dict_from_jax)
 
 from rollfree_calls import rollfree_calls  # noqa: F401 (fixture)
-from test_torch_model import compile_ref, random_trees
+from test_torch_model import compile_ref, jax_template, random_trees
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # --- the extent ops ---------------------------------------------------------
@@ -251,10 +251,11 @@ def bucketed_case(tiny_spec):
               "slo": _pad_to(batch["slo"], PAD_SLO),
               "__valid_image__": np.asarray([Y, Z, X], np.int32),
               "__valid_enface__": np.asarray([EH, X], np.int32)}
-    model = jbuild(_cfg("relative_2d_max"), spec=tiny_spec, remat=False)
-    template = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)},
-        {k: jnp.asarray(v) for k, v in batch.items()}, train=False))
+    # the trees' template from the JAX package's name table, not from a
+    # trace of the model's init
+    template = jax_template(build_model(
+        _cfg("relative_2d_max"), spec=ArchSpec(tiny_spec.channels),
+        device="cpu").state_dict())
     params, stats = random_trees(template, seed=8)
     jb = {k: jnp.asarray(v) for k, v in padded.items()}
     # both models traced into one function (the fused mode, a global of

@@ -23,7 +23,8 @@ from multimodal_fusion_fpn_torch.eval.ensemble import make_ensemble_eval_step
 from multimodal_fusion_fpn_torch.models.zoo import build_model
 from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
 
-from test_torch_model import _batch, compile_ref, random_trees
+from test_torch_model import (_batch, compile_ref, jax_template,
+                              random_trees)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_MEMBERS = 3
@@ -31,16 +32,19 @@ N_MEMBERS = 3
 
 @pytest.fixture(scope="module")
 def ensemble_case():
-    """The config, batch, the members' state dicts and the JAX ensemble
-    prediction, a future: the step is traced here and compiled in a thread
-    while the tests that do not read it run."""
+    """The config, batch, the members' state dicts, the JAX ensemble
+    prediction, a future (the step is traced here and compiled in a thread
+    while the tests that do not read it run), and the port's fp32 step on
+    the batch, which two tests read.  The JAX trees' template comes from
+    the JAX package's name table (``jax_template``), not from a trace of
+    the model's init."""
     cfg = make_config(model="FPNHybridFusion", crop="relative_2d_max",
                       fusion_modality="slo")
     batch = _batch(4)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jmodel = jbuild(cfg, remat=False)
-    template = jax.eval_shape(lambda: jmodel.init(
-        {"params": jax.random.PRNGKey(0)}, jb, train=False))
+    model = build_model(cfg, device="cpu")
+    template = jax_template(model.state_dict())
     members = [random_trees(template, seed=20 + i) for i in range(N_MEMBERS)]
     stack = lambda trees: jax.tree.map(lambda *a: np.stack(a), *trees)
     args = (stack([p for p, _ in members]), stack([s for _, s in members]),
@@ -50,44 +54,39 @@ def ensemble_case():
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ref = pool.submit(
             lambda: np.asarray(compile_ref(lowered)(*args)["prediction"]))
-        yield cfg, batch, sds, ref
+        port = make_ensemble_eval_step(model, sds, device="cpu")(batch)
+        yield cfg, batch, sds, ref, model, port["prediction"]
 
 
 def test_ensemble_is_the_mean_of_members(ensemble_case):
-    cfg, batch, sds, _ = ensemble_case
-    model = build_model(cfg, device="cpu")
+    _, batch, sds, _, model, got = ensemble_case
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     preds = []
     for sd in sds:
         model.load_state_dict(sd, strict=True)
         with torch.no_grad():
             preds.append(model(tb)["prediction"])
-    step = make_ensemble_eval_step(model, sds, device="cpu")
-    torch.testing.assert_close(step(batch)["prediction"],
-                               torch.stack(preds).mean(0),
+    torch.testing.assert_close(got, torch.stack(preds).mean(0),
                                rtol=1e-6, atol=1e-6)
 
 
 def test_ensemble_step_defaults_to_cuda(ensemble_case):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
-    cfg, _, sds, _ = ensemble_case
+    cfg, _, sds, _, _, _ = ensemble_case
     with pytest.raises((AssertionError, RuntimeError)):
         make_ensemble_eval_step(build_model(cfg, device="cpu"), sds)
 
 
 def test_ensemble_matches_jax(ensemble_case):
-    cfg, batch, sds, ref = ensemble_case
-    step = make_ensemble_eval_step(build_model(cfg, device="cpu"), sds,
-                                   device="cpu")
-    got = step(batch)["prediction"]
+    _, _, _, ref, _, got = ensemble_case
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref.result(), rtol=1e-4,
                                atol=1e-4)
 
 
 def test_ensemble_bf16_returns_compute_dtype(ensemble_case):
-    cfg, batch, sds, ref = ensemble_case
+    cfg, batch, sds, ref, _, _ = ensemble_case
     step = make_ensemble_eval_step(
         build_model(cfg, dtype=torch.bfloat16, device="cpu"), sds,
         device="cpu")

@@ -25,6 +25,12 @@
   the port's other JAX references (``_at_level_0``); the JAX trees'
   templates come from the JAX package's name table (``_jax_template``,
   ``_shape_template``).
+* VRC end to end: the same on a synthetic VRC tree of the HRF case's
+  shapes (``vrc``, the hybrid on the OCT-grid mask ``sq_proj_dil``),
+  whose JAX step is the HRF run's executable; its ``global_metrics.json``
+  (seven metrics) against JAX's, and the port's global metrics on the JAX
+  run's ``all_outputs.npz`` equal to JAX's file.  With the default mask
+  variant (the SLO-grid ``vs.vmirror``) both entry points fail alike.
 """
 
 import contextlib
@@ -32,6 +38,7 @@ import io
 import json
 import os
 import re
+import shutil
 import types
 from os.path import join
 
@@ -56,8 +63,10 @@ from multimodal_fusion_fpn_torch import paths as tpaths
 from multimodal_fusion_fpn_torch import validate_ensemble as tve
 from multimodal_fusion_fpn_torch.config import make_config, parse_config
 from multimodal_fusion_fpn_torch.data.imageio_utils import imread
-from multimodal_fusion_fpn_torch.data.synthetic import make_synthetic_hrf
+from multimodal_fusion_fpn_torch.data.synthetic import (make_synthetic_hrf,
+                                                        make_synthetic_vrc)
 from multimodal_fusion_fpn_torch.eval import harness as tharness
+from multimodal_fusion_fpn_torch.eval.configs import opt_factory as topts
 from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
 from multimodal_fusion_fpn_torch.models.zoo import build_model
 from multimodal_fusion_fpn_torch.train.checkpoints import (
@@ -66,6 +75,7 @@ from multimodal_fusion_fpn_torch.weights import (init_state_dict,
                                                  state_dict_from_jax)
 
 from test_torch_model import compile_ref
+from test_torch_model import jax_template as _jax_template
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY_INI = """[architecture]
@@ -173,20 +183,6 @@ def test_debug_images_raise(run_dirs):
 
 
 # --- checkpoints ---------------------------------------------------------
-
-def _jax_template(sd):
-    """The JAX trees' structure and shapes for the port's state dict
-    ``sd``, by the JAX package's own name table (``map_state_dict`` with
-    nothing to check against), with no JAX trace: that the table gives the
-    JAX models' own trees is held for every zoo model by
-    ``test_state_dict_round_trips_through_torch_import`` of
-    ``tests/test_torch_model.py`` and ``tests/test_torch_zoo.py``, and here
-    by the JAX entry point, whose model applies the trees."""
-    params, stats = map_state_dict(sd, {}, {}, strict=False)
-    shapes = lambda t: jax.tree.map(  # noqa: E731
-        lambda a: jax.ShapeDtypeStruct(np.shape(a), np.float32), t)
-    return {"params": shapes(params), "batch_stats": shapes(stats)}
-
 
 @pytest.mark.parametrize("name", ["FPNHybridFusion", "FPNLateFusion"])
 def test_checkpoint_round_trip_matches_jax_import(tmp_path, name):
@@ -332,7 +328,7 @@ def test_aggregation_matches_pandas(tmp_path, n):
 
 # --- end to end ----------------------------------------------------------
 
-def _members(cfg, run_dirs):
+def _members(cfg, paths):
     """Five seeded members for the port, each with its final bias moved
     by minus the median logit of its prediction on the first test image,
     so that the thresholded artifacts are not empty."""
@@ -340,8 +336,8 @@ def _members(cfg, run_dirs):
     from multimodal_fusion_fpn_torch.eval.configs import opt_factory
     from multimodal_fusion_fpn_torch.eval.harness import \
         create_val_dataloader
-    opt = opt_factory["hrf_fusion"](cfg)
-    with open(run_dirs["paths"]["split"]) as f:
+    opt = opt_factory[cfg.training_dataset](cfg)
+    with open(paths["split"]) as f:
         ids = json.load(f)["test"]
     batch = next(iter(create_val_dataloader(opt, ids,
                                             opt.get_val_transforms(), 0)))
@@ -375,34 +371,61 @@ def _shape_template(template):
                                   opt_state=None)
 
 
+# the JAX ensemble steps compiled in this file, by model and arguments:
+# the HRF and the VRC runs serve the same model at the same shapes, so the
+# second run reuses the first one's executable, with no trace or compile
+_COMPILED = {}
+
+
 def _at_level_0(make_step):
     """``make_ensemble_eval_step`` whose jitted step compiles through
     ``compile_ref`` (LLVM optimisation level 0, as every JAX reference of
-    the port's tests), once per argument structure and shapes."""
+    the port's tests), once per model, ``with_hd``, argument structure and
+    shapes."""
     def make(model, **kw):
-        step, compiled = make_step(model, **kw), {}
+        step = make_step(model, **kw)
 
         def run(*args):
-            key = str(jax.tree.map(lambda a: (np.shape(a), str(
-                getattr(a, "dtype", type(a)))), args))
-            if key not in compiled:
-                compiled[key] = compile_ref(step.lower(*args))
-            return compiled[key](*args)
+            key = (repr(model), str(sorted(kw.items())), str(jax.tree.map(
+                lambda a: (np.shape(a), str(getattr(a, "dtype", type(a)))),
+                args)))
+            if key not in _COMPILED:
+                _COMPILED[key] = compile_ref(step.lower(*args))
+            return _COMPILED[key](*args)
         return run
     return make
 
 
-@pytest.fixture(scope="module")
-def both_runs(run_dirs, tmp_path_factory):
+def _run_jax(argv, template):
+    """The JAX entry point on ``argv`` in the working directory, with the
+    name-table template and the level-0 compile.  Its step is given each
+    batch without the mask, which the hybrid net does not read (the JAX
+    ``zoo.py`` reads it only in FPN2D), so that one executable serves the
+    runs of this file, whose masks differ in shape."""
+    make = _at_level_0(jharness.make_ensemble_eval_step)
+
+    def make_without(model, **kw):
+        assert type(model).__name__ == "FPNHybridFusion" and not kw.get(
+            "with_hd")
+        step = make(model, **kw)
+        return lambda p, s, batch, *a: step(
+            p, s, {k: v for k, v in batch.items() if k != "mask"}, *a)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jve, "create_train_state", _shape_template(template))
+        mp.setattr(jharness, "make_ensemble_eval_step", make_without)
+        jve.run(argv)
+
+
+def _entry_runs(argv, paths, tmp_path_factory):
     """Both entry points on the same argv, data and members, each in its
     own working directory, then a second run of each, which must skip:
     (the two output paths, the port run's info, the second runs' exit
-    codes)."""
-    argv = _argv(run_dirs, ["--save-all-outputs", "--eval-batch", "2"])
+    codes, the working directories, the JAX template)."""
     cfg = parse_config(argv)
-    sds = _members(cfg, run_dirs)
+    sds = _members(cfg, paths)
     template = _jax_template(sds[0])
-    rel_model = tpaths.get_model_path(cfg, run_dirs["paths"]["split"])
+    rel_model = tpaths.get_model_path(cfg, paths["split"])
     cwd = {t: tmp_path_factory.mktemp(t) for t in ("jax", "torch")}
     for t in cwd:
         os.makedirs(join(cwd[t], rel_model))
@@ -416,11 +439,7 @@ def both_runs(run_dirs, tmp_path_factory):
     prev = os.getcwd()
     try:
         os.chdir(cwd["jax"])
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jve, "create_train_state", _shape_template(template))
-            mp.setattr(jharness, "make_ensemble_eval_step",
-                       _at_level_0(jharness.make_ensemble_eval_step))
-            jve.run(argv)
+        _run_jax(argv, template)
         os.chdir(cwd["torch"])
         info = tve.run(argv, device="cpu")
         skipped = []
@@ -432,7 +451,15 @@ def both_runs(run_dirs, tmp_path_factory):
             skipped.append(exc.value.code)
     finally:
         os.chdir(prev)
-    return {t: join(cwd[t], info["output_path"]) for t in cwd}, info, skipped
+    return ({t: join(cwd[t], info["output_path"]) for t in cwd}, info,
+            skipped, cwd, template)
+
+
+@pytest.fixture(scope="module")
+def both_runs(run_dirs, tmp_path_factory):
+    """:func:`_entry_runs` on ``tests/test_e2e.py``'s HRF argv."""
+    argv = _argv(run_dirs, ["--save-all-outputs", "--eval-batch", "2"])
+    return _entry_runs(argv, run_dirs["paths"], tmp_path_factory)[:3]
 
 
 def _close(got, want, rel=1e-4, what=""):
@@ -519,3 +546,114 @@ def test_entry_point_matches_jax(both_runs):
     tcsv = open(tfiles["test_output.csv"]).read().splitlines()
     jcsv = open(jfiles["test_output.csv"]).read().splitlines()
     assert tcsv[0] == jcsv[0] and len(tcsv) == len(jcsv) == 3
+
+
+# --- VRC end to end -------------------------------------------------------
+
+def _vrc_argv(run_dirs, paths, mask_variant="sq_proj_dil"):
+    """``_argv`` on a VRC tree: ``vrc`` with the hybrid net, whose
+    prediction lies on the OCT's en-face grid, so its mask is the OCT-grid
+    ``bscan_size.vs_proj.dil`` (``sq_proj_dil``)."""
+    argv = _argv(run_dirs, ["--save-all-outputs", "--eval-batch", "2"])
+    argv[argv.index("hrf_fusion")] = "vrc"
+    argv[argv.index(run_dirs["paths"]["oct"])] = paths["oct"]
+    if mask_variant is not None:
+        argv += ["--mask-variant", mask_variant]
+    return argv
+
+
+@pytest.fixture(scope="module")
+def vrc_runs(run_dirs, both_runs, tmp_path_factory):
+    """:func:`_entry_runs` on a synthetic VRC tree of the HRF case's shapes
+    (OCT (16, 64, 32), SLO (80, 32), two test images): after
+    ``both_runs``, so the JAX step is the HRF run's executable."""
+    paths = make_synthetic_vrc(str(run_dirs["root"] / "vrc"), n_patients=6,
+                               d=16, h=64, w=32, enface_h=80, enface_w=32,
+                               seed=4)
+    return _entry_runs(_vrc_argv(run_dirs, paths), paths,
+                       tmp_path_factory), paths
+
+
+def _csv(path):
+    with open(path) as f:
+        return [line.split(",") for line in f.read().splitlines()]
+
+
+def test_vrc_entry_point_matches_jax(vrc_runs):
+    """Path (a) of the VRC slice through both entry points: the same file
+    names; ``all_outputs.npz``'s ``pred`` within 1e-4 * max|p| and ``gt``
+    exact; the rows (``VRCPatId``, ``FileSetId``, Dice, Precision, Recall,
+    IoU and the areas) at rel 1e-4; ``global_metrics.json`` with the seven
+    metrics, and the port's metrics on the JAX run's ``all_outputs``
+    equal to the JAX run's file; a second run of each skips."""
+    (out, info, skipped, _, _), _ = vrc_runs
+    assert skipped == [0, 0] and info["images"] == 2
+    tfiles, jfiles = _tree(out["torch"]), _tree(out["jax"])
+    assert sorted(tfiles) == sorted(jfiles)
+    tz, jz = np.load(tfiles["all_outputs.npz"]), np.load(
+        jfiles["all_outputs.npz"])
+    pred = jz["pred"]
+    assert tz["pred"].dtype == pred.dtype == np.float64
+    assert np.abs(tz["pred"] - pred).max() <= 1e-4 * np.abs(pred).max()
+    np.testing.assert_array_equal(tz["gt"], jz["gt"])
+    assert pred.size == 2 * 16 * 32
+    assert (pred > 0.5).any() and (pred < 0.5).any() and jz["gt"].any()
+
+    tcsv, jcsv = _csv(tfiles["test_output.csv"]), _csv(
+        jfiles["test_output.csv"])
+    assert tcsv[0] == jcsv[0] == ["", "VRCPatId", "FileSetId", "Dice",
+                                  "Precision", "Recall", "IoU", "Area",
+                                  "Area_manual", "Area_diff"]
+    assert [r[:3] for r in tcsv] == [r[:3] for r in jcsv] and len(jcsv) == 3
+    _close([[float(v) for v in r[3:]] for r in tcsv[1:]],
+           [[float(v) for v in r[3:]] for r in jcsv[1:]], what="rows")
+    tm = json.load(open(tfiles["mean_results.json"]))
+    jm = json.load(open(jfiles["mean_results.json"]))
+    assert list(tm) == list(jm) == ["Dice", "Precision", "Recall", "IoU"]
+    for k in jm:
+        _close([tm[k][s] for s in jm[k]], [jm[k][s] for s in jm[k]],
+               what=f"mean_results {k}")
+
+    tg = json.load(open(tfiles["global_metrics.json"]))
+    jg = json.load(open(jfiles["global_metrics.json"]))
+    assert list(tg) == list(jg) == ["AUROC", "AUPR", "Sens", "Spec", "Acc",
+                                    "AP", "F1"]
+    opt = topts["vrc"](make_config(training_dataset="vrc",
+                                   model="FPNHybridFusion"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        on_jax = tharness.compute_global_metrics(
+            opt.global_metrics, {"gt": jz["gt"], "pred": pred},
+            str(out["torch"]))
+    assert on_jax == jg
+    # the port's own run: its predictions within 1e-6 of JAX's move a
+    # metric only through the pixels within that distance of 0.5 or of
+    # another pixel's score
+    near = 2 * np.count_nonzero(np.abs(pred - 0.5) < 1e-4) + 1
+    for k in jg:
+        assert abs(tg[k] - jg[k]) <= near / pred.size, (k, tg[k], jg[k])
+
+
+def test_vrc_default_mask_fails_in_both(run_dirs, vrc_runs):
+    """``vrc`` with the hybrid net and the default mask variant (the
+    SLO-grid ``vs.vmirror``, (80, 32), against a prediction on the OCT's
+    grid, (16, 32)): both entry points stop at Dice's shape guard (a
+    reference fault, ROADMAP Queue 3)."""
+    (_, _, _, cwd, template), paths = vrc_runs
+    argv = _vrc_argv(run_dirs, paths, mask_variant=None)
+    cfg = parse_config(argv)
+    assert cfg.mask_variant == "faf"
+    model_path = tpaths.get_model_path(cfg, paths["split"])
+    done = model_path.replace("vrc_faf", "vrc_sq_proj_dil")
+    prev = os.getcwd()
+    try:
+        for t in ("jax", "torch"):
+            os.chdir(cwd[t])
+            shutil.copytree(done, model_path)
+            with contextlib.redirect_stdout(io.StringIO()):
+                with pytest.raises(AssertionError, match="GT: \\(1, 1, 80"):
+                    if t == "jax":
+                        _run_jax(argv, template)
+                    else:
+                        tve.run(argv, device="cpu")
+    finally:
+        os.chdir(prev)

@@ -45,7 +45,7 @@ from multimodal_fusion_fpn_torch.models.zoo import build_model
 from multimodal_fusion_fpn_torch.ops import fused_block as tfb
 from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
 
-from test_torch_model import compile_ref, random_trees
+from test_torch_model import compile_ref, jax_template, random_trees
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # --- the plain versions against the JAX kernel bodies -----------------------
@@ -257,9 +257,10 @@ def _lower_models(submit, spec):
               "__valid_image__": np.asarray([MY, MZ, MX], np.int32),
               "__valid_enface__": np.asarray([EH, MX], np.int32)}
     model = jbuild(_cfg(), spec=spec, remat=False)
-    template = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)},
-        {k: jnp.asarray(v) for k, v in batch.items()}, train=False))
+    # the trees' template from the JAX package's name table, not from a
+    # trace of the model's init
+    template = jax_template(build_model(
+        _cfg(), spec=ArchSpec(spec.channels), device="cpu").state_dict())
     params, stats = random_trees(template, seed=13)
     jb = {k: jnp.asarray(v) for k, v in padded.items()}
     for mode, flag in ENV.items():
@@ -282,8 +283,7 @@ def _count_jax_calls():
         "image": rng.normal(size=(1, 1, 8, 64, 32)).astype(np.float32),
         "slo": rng.normal(size=(1, 1, 80, 1, 32)).astype(np.float32)}.items()}
     model = jbuild(_cfg(), remat=False)
-    template = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)}, batch, train=False))
+    template = jax_template(build_model(_cfg(), device="cpu").state_dict())
     counts = {}
     for mode, name in (("chain", "fused_chain_eval"),
                        ("pair", "fused_conv2_eval")):

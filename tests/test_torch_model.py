@@ -47,6 +47,20 @@ def compile_ref(lowered):
     return lowered.compile(COMPILE_OPTIONS)
 
 
+def jax_template(sd):
+    """The JAX trees' structure and shapes ({"params", "batch_stats"} of
+    ``jax.ShapeDtypeStruct``) for the port's state dict ``sd``, by the JAX
+    package's own name table (``map_state_dict`` with nothing to check
+    against), with no JAX trace of the model's init.  That the table gives
+    the JAX model's own trees is held here for the hybrid
+    (``test_state_dict_round_trips_through_torch_import``) and for the
+    rest of the zoo in ``tests/test_torch_zoo.py``."""
+    params, stats = map_state_dict(sd, {}, {}, strict=False)
+    shapes = lambda t: jax.tree.map(  # noqa: E731
+        lambda a: jax.ShapeDtypeStruct(np.shape(a), np.float32), t)
+    return {"params": shapes(params), "batch_stats": shapes(stats)}
+
+
 def random_trees(template, seed):
     """numpy (params, batch_stats) with the template's structure: conv
     kernels ~ N(0, 1/fan_in), BN scale ~ N(1, 0.1), biases ~ N(0, 0.1),
@@ -284,6 +298,11 @@ def test_state_dict_round_trips_through_torch_import(hybrid_weights):
         assert [p for p, _ in la] == [p for p, _ in lb]
         for (_, x), (_, y) in zip(la, lb):
             np.testing.assert_array_equal(x, y)
+    # the name table alone gives the init's trees (``jax_template``)
+    la = jax.tree.leaves_with_path(template)
+    lb = jax.tree.leaves_with_path(jax_template(model.state_dict()))
+    assert [(p, x.shape, x.dtype) for p, x in la] == [
+        (p, x.shape, x.dtype) for p, x in lb]
 
 
 # kernel-wrapper calls per member forward at the ini widths: the hybrid's

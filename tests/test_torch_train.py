@@ -72,6 +72,7 @@ from multimodal_fusion_fpn_torch.train.state import create_train_state
 from multimodal_fusion_fpn_torch.train.step import make_train_step
 from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
 
+from test_torch_model import jax_template
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 0.1
@@ -144,12 +145,11 @@ def _np(tree):
 
 def _weights():
     """The module's numpy (params, batch_stats) in the JAX tree layout
-    (``_random_trees``, seed 3) and its two batches."""
+    (``_random_trees``, seed 3) and its two batches; the trees' template
+    from the JAX package's name table (``jax_template``), not from a
+    trace of the model's init."""
     b0, b1 = _batch(0), _batch(1)
-    model = jbuild(_cfg(), remat=False)
-    template = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)},
-        {k: jnp.asarray(v) for k, v in b0.items()}, train=False))
+    template = jax_template(build_model(_cfg(), device="cpu").state_dict())
     return _random_trees(template, seed=3), (b0, b1)
 
 
