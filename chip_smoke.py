@@ -229,13 +229,46 @@ Phases, each of which fails the run on any error:
    1e-6 plus what the pixels that the two runs rank or threshold
    differently can move (``vrc_global_compare``); path (a) with the first
    member's ENTRY_FAULT conv zeroed must fail.
-12. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+12. The training entry point (``train_entry_phase``): the port's
+   ``multimodal_fusion_fpn_torch.train.run`` over synthetic HRF trees
+   written by ``make_synthetic_hrf`` (``train_tree``), FPNHybridFusion at
+   the ini widths, ``relative_2d_max``, SLO, the port's seeded init.
+   (a) bf16 B=4 on the kernels, TRAIN_EPOCHS epochs over TRAIN_VISITS
+   training visits of phase 10's shape (TRAIN_MULTIPLIER crops of phase 5's
+   shapes per visit and epoch) and TRAIN_VAL_VISITS whole validation
+   visits: the launches equal the run's steps x phase 5's per-step counts
+   plus its eval forwards (validation and debug strips) x phase 2's
+   per-forward counts, exactly; the artifacts (TRAIN_EPOCHS
+   ``epoch=*.ckpt``, ``last.ckpt`` with the optimizer, ``curves.json``,
+   ``curves.svg``, a strip under ``images/``, no ``resume.ckpt``); every
+   step's loss finite; images/s from the call to ``last.ckpt`` and the
+   trainer's own, the wall split (loader wait, steps, debug strips,
+   validation, checkpoints + curves, the rest) and, from a second run
+   under ``profiling.trace``, the card's busy share.  Then one bf16 B=4
+   train step with dropout TRAIN_DROPOUT against one without
+   (``dropout_check``).  (b) fp32 on TRAIN_SMALL_VISITS small visits, on
+   the card and on the CPU, and a float64 run of the same argv on the
+   card's plain path: the steps equal, the first loss within
+   TRAIN_LOSS_TOL, and the card's final state and curves as close to the
+   float64 run's as TRAIN_SPREAD times the CPU's (``held_to_reference``;
+   float32 does not determine these 4 steps, see TRAIN_SPREAD).  (c) The
+   same run stopped after epoch 0 and resumed with ``--resume`` gives
+   (b)'s card state bit for bit (cuDNN's deterministic algorithms on);
+   otherwise the phase names the first differing tensor, runs (b) again,
+   and passes only when that rerun differs too (an op off the kernels
+   that is not run-to-run repeatable; the ops that
+   ``torch.use_deterministic_algorithms`` warned of are listed) and the
+   resumed state is held as (b).  (d) A
+   TRAIN_SERVE_EPOCHS-epoch fp32 run's five ``epoch=*.ckpt`` served by
+   ``validate_ensemble.run`` with ``--debug-images``.
+13. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8, and beside them the entry point's
-   bf16 run of phase 10, ``launches_entry_point``, and phase 11's bf16
+   bf16 run of phase 10, ``launches_entry_point``, phase 11's bf16
    kernel runs, ``launches_vrc`` (both paths) and ``launches_vrc_paths``
-   (each); max-abs-err of its fp32 comparisons;
+   (each), and phase 12's bf16 run, ``launches_train_entry``; max-abs-err
+   of its fp32 comparisons;
    per-step times summed over the bf16 B=4 calls (for the bucketed paths
    one bucketed ensemble step of 5 members, where the launches count the
    serving run's SERVE_IMAGES / SERVE_BATCH steps), for the tensor-core
@@ -433,6 +466,34 @@ VRC_LAUNCHES = {
 VRC_GLOBAL = ["AUROC", "AUPR", "Sens", "Spec", "Acc", "AP", "F1"]
 # the host seconds of the seven global metrics over this many seeded pixels
 VRC_GM_PIXELS = 4_000_000
+
+# phase 12: the training entry point over synthetic HRF trees.  (a) bf16 at
+# the ini widths: TRAIN_VISITS training and TRAIN_VAL_VISITS validation
+# visits of phase 10's shape, TRAIN_MULTIPLIER crops per visit and epoch at
+# phase 5's crop shapes (OCT (4, 1, 32, 496, 128), SLO (4, 1, 320, 1, 128)),
+# validation on the whole visits; (b)-(d) fp32 on TRAIN_SMALL_VISITS small
+# training visits (crops (1, 1, 32, 64, 128) and (1, 1, 320, 1, 128)), one
+# validation visit and one test visit
+TRAIN_VISITS, TRAIN_VAL_VISITS = 8, 2
+TRAIN_MULTIPLIER = 4
+TRAIN_BATCH = 4
+TRAIN_EPOCHS = 2
+TRAIN_SMALL_VISITS = 2
+TRAIN_SMALL_OCT, TRAIN_SMALL_SLO = (16, 64, 48), (80, 48)
+TRAIN_SERVE_EPOCHS = 5
+# (b), held_to_reference: float32 does not determine 4 SGD steps at lr 0.1
+# from random weights (a ReLU or pool choice within rounding of a flip moves
+# a cotangent wholesale; the CPU's own float32 run ends at cosine 0.96 of
+# the float64 run's parameter change), so the card is held to what float32
+# determines: the first step's loss within TRAIN_LOSS_TOL (relative) of the
+# CPU's, and a final state and curves as close to a float64 run's as
+# TRAIN_SPREAD times the CPU's float32 run
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_SPREAD = 3.0
+# the dropout check: rate 0.1 in slot 1 (conv2, conv2_2d) and slot 6
+# (up_concat3)
+TRAIN_DROPOUT = (0.0, 0.1, 0.0, 0.0, 0.0, 0.0, 0.1, 0.0, 0.0)
+TRAIN_DROPOUT_STAGES = ("resensnet.conv2", "resensnet.conv2_2d")
 
 
 def emit(obj):
@@ -2631,6 +2692,499 @@ def vrc_phase(card):
     return failures, launches
 
 
+def train_tree(root, n_train, n_val, oct_shape, slo_shape, seed):
+    """A synthetic HRF tree (the port's ``make_synthetic_hrf``, one visit
+    per patient) whose split trains on the first ``n_train`` patients,
+    validates on the next ``n_val`` and tests on one more."""
+    import os
+    from multimodal_fusion_fpn_torch.data.synthetic import \
+        make_synthetic_hrf
+    n = n_train + n_val + 1
+    paths = make_synthetic_hrf(root, n_patients=n, d=oct_shape[0],
+                               h=oct_shape[1], w=oct_shape[2],
+                               enface_h=slo_shape[0], enface_w=slo_shape[1],
+                               seed=seed)
+    pats = [f"P{i:03d}" for i in range(n)]
+    with open(os.path.join(root, "split.json"), "w") as f:
+        json.dump({"train": pats[:n_train],
+                   "val": pats[n_train:n_train + n_val],
+                   "test": pats[n_train + n_val:]}, f)
+    return paths
+
+
+def train_argv(paths, precision, epochs, batch, multiplier, extra=()):
+    """The train entry point's argv for a synthetic tree: the hybrid at
+    the ini widths, ``relative_2d_max``, SLO."""
+    return ["--training-dataset", "hrf_fusion", "--model", "FPNHybridFusion",
+            "--crop", "relative_2d_max", "--fusion-modality", "slo",
+            "--version", "chip_smoke", "--data-root", paths["oct"],
+            "--split-name", "split", "--precision", precision,
+            "--batch-size", str(batch), "--epochs", str(epochs),
+            "--multiplier", str(multiplier), "--threads", "8", *extra]
+
+
+def tree_files(root):
+    import os
+    files = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            files[os.path.relpath(os.path.join(d, n), root)] = \
+                os.path.join(d, n)
+    return files
+
+
+def train_run(argv, workdir, device="cuda", kernels=True, trace_dir=None):
+    """One run of ``multimodal_fusion_fpn_torch.train.run`` in
+    ``workdir``: (its info, the run directory's files, the launch counts,
+    the profile of ``profiling.trace(trace_dir)`` or None)."""
+    import os
+    import torch
+    from multimodal_fusion_fpn_torch import ops, profiling, train
+    os.makedirs(workdir, exist_ok=True)
+    prev = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            ops.reset_launches()
+            with profiling.trace(trace_dir) as prof:
+                info = train.run(argv, device=device, kernels=kernels)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            launches = ops.kernel_launches()
+    finally:
+        os.chdir(prev)
+    return (info, tree_files(os.path.join(workdir, info["model_path"])),
+            launches, prof)
+
+
+@contextlib.contextmanager
+def interrupted_after(epoch):
+    """Stop the trainer with a KeyboardInterrupt once it has written the
+    ``resume.ckpt`` of ``epoch``."""
+    from multimodal_fusion_fpn_torch.train.trainer import Trainer as T
+    orig = T._save_resume
+
+    def save_then_stop(self, state, e, best, patience_left):
+        orig(self, state, e, best, patience_left)
+        if e == epoch:
+            raise KeyboardInterrupt
+
+    T._save_resume = save_then_stop
+    try:
+        yield
+    finally:
+        T._save_resume = orig
+
+
+def train_state(files):
+    """(state dict, {momentum i: buffer}, step) of a run's last.ckpt."""
+    from multimodal_fusion_fpn_torch.train.checkpoints import (
+        load_checkpoint, load_training_state)
+    extra = load_training_state(files["last.ckpt"])
+    mom = {f"momentum.{i}": s["momentum_buffer"]
+           for i, s in extra["optimizer"]["state"].items()}
+    return load_checkpoint(files["last.ckpt"]), mom, int(extra["step"])
+
+
+def train_agreement(a, b, init):
+    """Run ``a``'s final state against run ``b``'s, both from the weights
+    ``init``: for the parameters, the BatchNorm running stats and the
+    momentum, each concatenated, the cosine and norm ratio of their changes
+    from ``init`` (the momentum's from 0), and the worst single tensor
+    (relative to its own max|value|)."""
+    import torch
+
+    def parts(s):
+        sd, mom, _ = s
+        par = {k: v for k, v in sd.items() if "running" not in k
+               and not k.endswith("num_batches_tracked")}
+        bn = {k: v for k, v in sd.items() if "running" in k}
+        return {"params": par, "bn_stats": bn, "momentum": mom}
+
+    pa, pb = parts(a), parts(b)
+    zero = {k: torch.zeros_like(v) for k, v in pb["momentum"].items()}
+    base = {"params": init, "bn_stats": init, "momentum": zero}
+    out = {}
+    for part in ("params", "bn_stats", "momentum"):
+        names = sorted(pb[part])
+        assert names == sorted(pa[part]), part
+        da = torch.cat([(pa[part][k].double() - base[part][k].double())
+                        .flatten() for k in names])
+        db = torch.cat([(pb[part][k].double() - base[part][k].double())
+                        .flatten() for k in names])
+        worst = max(((pa[part][k].double() - pb[part][k].double()).abs()
+                     .max().item() / max(pb[part][k].abs().max().item(),
+                                         1e-30), k) for k in names)
+        out[part] = {"cos": torch.nn.functional.cosine_similarity(
+            da, db, dim=0).item(), "norm_ratio": (da.norm()
+                                                  / db.norm()).item(),
+            "worst_tensor_rel_err": worst[0], "worst_tensor": worst[1]}
+    return out
+
+
+def held_to_reference(card, cpu, ref, init, first_loss=True):
+    """(b)'s rule, each run a ``train_run`` result: the step counts and
+    BatchNorm counts equal, with ``first_loss`` the first step's loss on
+    the card within TRAIN_LOSS_TOL of the CPU's, and the card's
+    float32 run as close to the float64 reference as TRAIN_SPREAD times
+    the CPU's float32 run: for each part of ``train_agreement``, the
+    cosine's distance from 1 and the norm ratio's, and the distance of all
+    the curves' values."""
+    import torch
+    runs = {"card": card, "cpu": cpu, "ref": ref}
+    states = {n: train_state(r[1]) for n, r in runs.items()}
+    ok = len({s[2] for s in states.values()}) == 1 and all(
+        torch.equal(states["card"][0][k], v)
+        for k, v in states["ref"][0].items()
+        if k.endswith("num_batches_tracked"))
+    out = {"steps": states["card"][2],
+           "card_vs_cpu": train_agreement(states["card"], states["cpu"],
+                                          init)}
+    if first_loss:
+        losses = [card[0]["losses"][0], cpu[0]["losses"][0]]
+        ok &= abs(losses[0] - losses[1]) <= TRAIN_LOSS_TOL * abs(losses[1])
+        out["first_loss"] = losses
+    for name in ("card", "cpu"):
+        out[f"{name}_vs_ref"] = train_agreement(states[name], states["ref"],
+                                                init)
+        out[f"{name}_curves_vs_ref"] = curve_distance(
+            run_curves(runs[name]), run_curves(ref))
+    for part in ("params", "bn_stats", "momentum"):
+        c, p = out["card_vs_ref"][part], out["cpu_vs_ref"][part]
+        ok &= 1 - c["cos"] <= TRAIN_SPREAD * (1 - p["cos"]) + 1e-4
+        ok &= (abs(c["norm_ratio"] - 1)
+               <= TRAIN_SPREAD * abs(p["norm_ratio"] - 1) + 1e-3)
+    c, p = out["card_curves_vs_ref"], out["cpu_curves_vs_ref"]
+    ok &= c["series"] == p["series"]
+    ok &= c["l2"] <= TRAIN_SPREAD * p["l2"] + 1e-5
+    return bool(ok), out
+
+
+def run_curves(run):
+    with open(run[1]["curves.json"]) as f:
+        return json.load(f)
+
+
+def curve_distance(ca, cb):
+    """The L2 norm of the differences of two runs' curves.json values (the
+    same series, NaN where NaN, or infinity) and each series' largest."""
+    if list(ca) != list(cb):
+        return {"series": list(ca), "l2": float("inf"), "max_abs": {}}
+    total, worst = 0.0, {}
+    for k in cb:
+        x, y = np.asarray(ca[k], float), np.asarray(cb[k], float)
+        if x.shape != y.shape or not np.array_equal(np.isnan(x),
+                                                    np.isnan(y)):
+            return {"series": list(ca), "l2": float("inf"), "max_abs": {}}
+        d = np.abs(x - y)[~np.isnan(y)]
+        total += float((d ** 2).sum())
+        worst[k] = float(d.max(initial=0.0))
+    return {"series": list(cb), "l2": total ** 0.5, "max_abs": worst}
+
+
+@contextlib.contextmanager
+def float64_model():
+    """The training entry point's model built in float64 (its
+    parameters too): (b)'s reference."""
+    import torch
+    from multimodal_fusion_fpn_torch.train import __main__ as entry
+    real = entry.build_model
+    entry.build_model = lambda config, dtype=None, device="cuda": real(
+        config, dtype=torch.float64, device=device).double()
+    try:
+        yield
+    finally:
+        entry.build_model = real
+
+
+def first_difference(a, b):
+    """The first tensor (in state-dict order, then the momentum) where
+    run ``a``'s final state differs from ``b``'s in any bit, and its
+    max-abs difference; None when they are equal (the step included)."""
+    import torch
+    for part in (0, 1):
+        for k, v in b[part].items():
+            if not torch.equal(a[part][k], v):
+                return {"tensor": k, "max_abs": (a[part][k].double()
+                                                 - v.double()).abs().max()
+                        .item()}
+    return None if a[2] == b[2] else {"tensor": "step", "max_abs": None}
+
+
+def busy_ms(prof):
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def stage_launches(model, names):
+    """Hooks that add the launches made inside the forward and the
+    backward of the submodules ``names`` to the returned dict."""
+    from multimodal_fusion_fpn_torch import ops
+    inside = collections.Counter()
+    marks = {}
+
+    def begin(key):
+        def hook(*_):
+            marks[key] = ops.kernel_launches()
+        return hook
+
+    def end(key):
+        def hook(*_):
+            now = ops.kernel_launches()
+            inside.update({k: now[k] - marks[key][k] for k in now})
+        return hook
+
+    mods = dict(model.named_modules())
+    handles = []
+    for n in names:
+        m = mods[n]
+        handles += [m.register_forward_pre_hook(begin(n + ":f")),
+                    m.register_forward_hook(end(n + ":f")),
+                    m.register_full_backward_pre_hook(begin(n + ":b")),
+                    m.register_full_backward_hook(end(n + ":b"))]
+    return inside, handles
+
+
+def dropout_check(card, sd):
+    """Phase 12's dropout check: one bf16 B=4 train step of the hybrid
+    with TRAIN_DROPOUT against one without, from the same weights: the
+    dropout stages leave the kernels (the launches of the step without
+    dropout, less those made inside TRAIN_DROPOUT_STAGES and the all-ties
+    pool backward after each of them, exactly), the loss is finite, and
+    eval equals eval without dropout (bit for bit on the plain path,
+    phase 3's bf16 rule on the kernels)."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.losses import (Mix, bce_loss,
+                                                     dice_loss_joint)
+    from multimodal_fusion_fpn_torch.models.arch_config import (
+        ArchSpec, load_arch_spec)
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    from multimodal_fusion_fpn_torch.train.optim import sgd
+    from multimodal_fusion_fpn_torch.train.state import create_train_state
+    from multimodal_fusion_fpn_torch.train.step import make_train_step
+    cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
+                          fusion_modality="slo", number_of_outputs=1)
+    base = load_arch_spec()
+    specs = {"none": base,
+             "dropout": ArchSpec(base.channels, dropout=TRAIN_DROPOUT)}
+    crit = Mix({"Dice Loss": dice_loss_joint(), "BCE loss": bce_loss()})
+    batch = make_batch(TRAIN_BATCH, 12)
+    runs, inside = {}, None
+    for tag, spec in specs.items():
+        model = build_model(cfg, spec=spec, dtype=torch.bfloat16)
+        opt = sgd(model.parameters(), LR)
+        state = create_train_state(model, opt, sd)
+        step = make_train_step(model, opt, crit)
+        handles = []
+        if tag == "none":
+            inside, handles = stage_launches(model, TRAIN_DROPOUT_STAGES)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        aux = step(state, batch, generator=torch.Generator(
+            device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        runs[tag] = (ops.kernel_launches(), float(aux["loss"]))
+        for h in handles:
+            h.remove()
+        model.load_state_dict(sd)
+        model.eval()
+        b = {k: torch.from_numpy(v).cuda()
+             for k, v in make_batch(TRAIN_BATCH, 13).items()}
+        with torch.inference_mode():
+            runs[tag] += (model(b)["prediction"],
+                          model(b, kernels=False)["prediction"])
+        del model, opt, state
+        torch.cuda.empty_cache()
+    base_l, drop_l = runs["none"][0], runs["dropout"][0]
+    want = {k: base_l[k] - inside[k] for k in base_l}
+    want["max_pool3d_cl_bwd"] -= len(TRAIN_DROPOUT_STAGES)
+    left = all(inside[k] > 0 for k in ("fused_conv_stats",
+                                       "fused_conv_dgrad",
+                                       "fused_conv_wgrad"))
+    ok_l = drop_l == want and left
+    ok_e, st = compare(runs["dropout"][2].float() - 0.5,
+                       runs["none"][2].float() - 0.5, torch.bfloat16)
+    same_plain = torch.equal(runs["dropout"][3], runs["none"][3])
+    finite = all(np.isfinite(runs[t][1]) for t in runs)
+    rec = {"phase": "train_dropout", "dropout": list(TRAIN_DROPOUT),
+           "launches": drop_l, "expected": want,
+           "launches_without_dropout": base_l,
+           "launches_in_dropout_stages_without_dropout": dict(inside),
+           "loss": runs["dropout"][1], "loss_without_dropout":
+           runs["none"][1], "eval_plain_bit_equal": same_plain,
+           "eval_kernels_vs_without": st, "card": card}
+    return ok_l and ok_e and same_plain and finite, rec
+
+
+def train_entry_phase(card, per_step, per_forward, sd):
+    """Phase 12, the training entry point (module note): the failures and
+    the launch counts of (a).  ``per_step`` / ``per_forward``: the launches
+    of one bf16 B=4 train step (phase 5) and of one eval forward (phase
+    2); ``sd``: seeded weights for the dropout check."""
+    import os
+    import tempfile
+    import warnings
+    import torch
+    from multimodal_fusion_fpn_torch import validate_ensemble
+    from multimodal_fusion_fpn_torch.config import parse_config
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    from multimodal_fusion_fpn_torch.train.checkpoints import \
+        load_training_state
+    from multimodal_fusion_fpn_torch.weights import init_state_dict
+    t0 = time.time()
+    failures = []
+
+    def check(ok, rec, what):
+        emit(dict(rec, ok=bool(ok), seconds=time.time() - t0))
+        if not ok:
+            failures.append(f"train entry point: {what}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+        big = train_tree(j("big"), TRAIN_VISITS, TRAIN_VAL_VISITS,
+                         ENTRY_OCT, ENTRY_SLO, 31)
+        small = train_tree(j("small"), TRAIN_SMALL_VISITS, 1,
+                           TRAIN_SMALL_OCT, TRAIN_SMALL_SLO, 32)
+        emit({"phase": "train_entry_setup", "seconds": time.time() - t0})
+
+        # (a) bf16 at the ini widths, on the kernels
+        argv = train_argv(big, "bf16", TRAIN_EPOCHS, TRAIN_BATCH,
+                          TRAIN_MULTIPLIER)
+        info, files, launches, _ = train_run(argv, j("a"))
+        n_steps = TRAIN_EPOCHS * TRAIN_VISITS * TRAIN_MULTIPLIER // TRAIN_BATCH
+        got = {k: launches.get(k, 0) for k in KERNELS}
+        want = {k: info["steps"] * per_step.get(k, 0)
+                + info["eval_forwards"] * per_forward.get(k, 0)
+                for k in KERNELS}
+        check(got == want and info["steps"] == n_steps
+              and info["eval_forwards"] > TRAIN_EPOCHS * TRAIN_VAL_VISITS,
+              {"phase": "train_entry_launches", "launches": got,
+               "expected": want, "steps": info["steps"],
+               "eval_forwards": info["eval_forwards"]},
+              f"launches {got} != {want}")
+        ckpts = sorted(f for f in files if f.startswith("epoch="))
+        strips = [f for f in files if f.startswith("images/")
+                  and f.endswith(".png")]
+        extra = load_training_state(files["last.ckpt"])
+        check(len(ckpts) == TRAIN_EPOCHS and "optimizer" in extra
+              and extra["step"] == n_steps and "curves.json" in files
+              and "curves.svg" in files and "resume.ckpt" not in files
+              and strips and not info["interrupted"],
+              {"phase": "train_entry_tree", "checkpoints": ckpts,
+               "debug_strips": len(strips), "files": sorted(files)},
+              "the artifacts of the bf16 run")
+        losses = info["losses"]
+        check(len(losses) == n_steps and all(np.isfinite(losses)),
+              {"phase": "train_entry_loss", "losses": losses},
+              "a loss that is not finite")
+        tm = info["timing"]
+        rest = info["seconds"] - sum(tm.values())
+        emit({"phase": "train_entry_rate", "images": info["images"],
+              "steps": info["steps"], "batch": TRAIN_BATCH,
+              "img_per_s_entry": info["images"] / info["seconds"],
+              "img_per_s_trainer": info["images"] / (tm["load"]
+                                                     + tm["step"]),
+              "ms_per_step_trainer": 1e3 * tm["step"] / info["steps"],
+              "seconds_entry": info["seconds"],
+              "seconds_split": dict(tm, rest=rest), "card": card})
+        info_p, _, _, prof = train_run(argv, j("a_profiled"),
+                                       trace_dir=j("a_trace"))
+        traced = prof is not None and os.path.exists(j("a_trace",
+                                                       "trace.json"))
+        busy = busy_ms(prof) if prof is not None else float("nan")
+        check(traced, {"phase": "train_entry_busy", "device_busy_ms": busy,
+                       "seconds_profiled_run": info_p["seconds"],
+                       "busy_share_of_profiled_run":
+                       busy / 1e3 / info_p["seconds"],
+                       "busy_share_of_timed_run": busy / 1e3
+                       / info["seconds"], "trace_written": traced,
+                       "card": card},
+              "profiling.trace did not trace the card")
+
+        ok, rec = dropout_check(card, sd)
+        check(ok, rec, "the dropout step")
+
+        # (b) fp32, two small visits: the card against the CPU; cuDNN's
+        # deterministic algorithms from here on, for (c)
+        cudnn = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as warned:
+                warnings.simplefilter("always")
+                argv_s = train_argv(small, "fp32", TRAIN_EPOCHS, 1, 1)
+                init = init_state_dict(build_model(parse_config(argv_s),
+                                                   device="cpu"), 1234)
+                card_b = train_run(argv_s, j("b_card"))
+                cpu_b = train_run(argv_s, j("b_cpu"), device="cpu")
+                with float64_model():
+                    ref_b = train_run(argv_s, j("b_ref"), kernels=False)
+                s_card = train_state(card_b[1])
+                ok, st = held_to_reference(card_b, cpu_b, ref_b, init)
+                n_small = TRAIN_EPOCHS * TRAIN_SMALL_VISITS
+                check(ok and card_b[0]["steps"] == n_small
+                      and cpu_b[0]["steps"] == n_small,
+                      {"phase": "train_entry_fp32_card_vs_cpu",
+                       "spread": TRAIN_SPREAD, "loss_tol": TRAIN_LOSS_TOL,
+                       **st}, "fp32 card vs CPU")
+
+                # (c) interrupted after epoch 0, resumed to the end
+                with interrupted_after(0):
+                    c1 = train_run(argv_s, j("c"))
+                stopped = (c1[0]["interrupted"] and "resume.ckpt" in c1[1]
+                           and "last.ckpt" not in c1[1])
+                c2 = train_run(argv_s + ["--resume"], j("c"))
+                s_res = train_state(c2[1])
+                diff = first_difference(s_res, s_card)
+                rec = {"phase": "train_entry_resume", "stopped": stopped,
+                       "bit_identical": diff is None, "first_difference":
+                       diff, "steps": [s_res[2], s_card[2]]}
+                ok = stopped and diff is None and "resume.ckpt" not in c2[1]
+                if diff is not None:
+                    # the uninterrupted run again: is the card's run
+                    # itself repeatable?
+                    again = train_run(argv_s, j("b_card_again"))
+                    rerun = first_difference(train_state(again[1]), s_card)
+                    ok_t, st_t = held_to_reference(c2, cpu_b, ref_b, init,
+                                                   first_loss=False)
+                    rec.update(rerun_first_difference=rerun,
+                               resume_vs_reference=st_t,
+                               nondeterministic_ops=sorted(
+                                   {str(w.message)[:160] for w in warned}))
+                    ok = stopped and rerun is not None and ok_t
+                check(ok, rec, "resume is not the uninterrupted run")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = cudnn
+
+        # (d) serve the five checkpoints of a 5-epoch fp32 run
+        argv_d = train_argv(small, "fp32", TRAIN_SERVE_EPOCHS, 1, 1)
+        d_info, d_files, _, _ = train_run(argv_d, j("d"))
+        prev = os.getcwd()
+        os.chdir(j("d"))
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                served = validate_ensemble.run(argv_d + ["--debug-images"])
+        finally:
+            os.chdir(prev)
+        out = tree_files(j("d", served["output_path"]))
+        ckpts = sorted(f for f in d_files if f.startswith("epoch="))
+        check(len(ckpts) == TRAIN_SERVE_EPOCHS and served["images"] == 1
+              and "mean_results.json" in out
+              and sum(f.startswith("__images/") for f in out) == 1,
+              {"phase": "train_entry_serve", "checkpoints": ckpts,
+               "served_images": served["images"], "files": sorted(out)},
+              "serving the run's checkpoints")
+    emit({"phase": "train_entry_done", "ok": not failures,
+          "seconds": time.time() - t0, "card": card})
+    return failures, got
+
+
 def per_step(records, field):
     return sum(r[field] * r["calls_per_step"] for r in records)
 
@@ -3083,7 +3637,12 @@ def main() -> int:
     vrc_failures, vrc_launches = vrc_phase(card)
     failures += vrc_failures
 
-    # --- 12. summary ------------------------------------------------------
+    # --- 12. the training entry point -------------------------------------
+    train_failures, main_launches["train_entry"] = train_entry_phase(
+        card, main_launches["train"], shapes["bf16_B4"]["launches"], sds[0])
+    failures += train_failures
+
+    # --- 13. summary ------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
         prefix = RECORD_PREFIX.get(path, "")
@@ -3104,6 +3663,7 @@ def main() -> int:
             "launches_ensemble_step": main_launches["ensemble"][name],
             "launches_bucketed_serving": main_launches["bucketed"][name],
             "launches_entry_point": main_launches["entry"][name],
+            "launches_train_entry": main_launches["train_entry"][name],
             "launches_vrc": sum(v[name] for v in vrc_launches.values()),
             "launches_vrc_paths": {p: v[name]
                                    for p, v in vrc_launches.items()},

@@ -18,8 +18,9 @@ Crop types (same semantics as the reference, ``config.py:5-17``):
 
 Extensions of the JAX package (new flags; all default to
 parity-preserving values): ``--precision``, ``--mesh``, ``--bn-sync``.
-The port accepts ``--mesh`` and ``--bn-sync`` and does not use them yet
-(one card, ROADMAP M10).
+On one card (ROADMAP M10) the training entry point refuses ``--mesh``
+(``NotImplementedError``) and ``--bn-sync`` has nothing to synchronize;
+serving ignores both.
 """
 
 import argparse

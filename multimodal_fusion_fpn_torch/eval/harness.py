@@ -26,8 +26,10 @@ feeds :func:`evaluate` from the data loader (with the noise of
 ``results_dict.json``, ``mean_results.json`` and ``global_metrics.json``
 without pandas, with pandas' conventions (see :func:`write_csv` and
 :func:`column_stats`); ``global_metrics.json`` holds the opt's global
-pixel metrics over ``all_outputs`` (VRC's seven, HRF's none).
-``--debug-images`` (``viz.py``) is not ported yet.
+pixel metrics over ``all_outputs`` (VRC's seven, HRF's none).  With
+``debug_images`` each image's strip (:func:`..viz.debug_batch`, the
+prediction cropped to its true extent) goes to ``<output_path>/__images/
+<FileSetId>.png`` before its metrics (``harness.py:223-232``).
 """
 
 import csv
@@ -46,6 +48,7 @@ from multimodal_fusion_fpn_torch.data.loader import DataLoader
 from multimodal_fusion_fpn_torch.eval.noise import noise_classes
 from multimodal_fusion_fpn_torch.ops.resize import resize
 from multimodal_fusion_fpn_torch.train.step import MODEL_KEYS
+from multimodal_fusion_fpn_torch.viz import debug_batch
 
 FUSED_HD_KEYS = ("__device_hd__", "__device_hd95__")
 
@@ -188,7 +191,8 @@ def evaluate(step: Callable, batches: Iterable[Mapping],
              block_fusion: Optional[str] = None,
              all_outputs: Optional[Dict] = None,
              output_path: Optional[str] = None, save_data: bool = True,
-             timing: Optional[Dict[str, float]] = None
+             timing: Optional[Dict[str, float]] = None,
+             debug_dir: Optional[str] = None
              ) -> Tuple[List[Dict], Dict]:
     """Run the ensemble ``step`` (``eval.ensemble.make_ensemble_eval_step``,
     built ``with_hd`` when a metric has ``device=True``) over ``batches``:
@@ -199,8 +203,10 @@ def evaluate(step: Callable, batches: Iterable[Mapping],
     ``save_data`` go to :func:`compute_metrics`.  A ``timing`` dict gathers
     the seconds spent taking batches from ``batches`` ("load"), in the
     step and its copy to the host ("step"), in the metrics ("metrics") and
-    in writing files ("artifacts").  Returns (the metrics rows in input
-    order, {FileSetId: Dice})."""
+    in writing files ("artifacts").  With ``debug_dir`` each image's debug
+    strip is written there first (a failure is printed, as the JAX
+    harness does).  Returns (the metrics rows in input order,
+    {FileSetId: Dice})."""
     use_hd_device = any(getattr(m, "device", False)
                         for m in metrics_val.values())
     kw = {} if block_fusion is None else {"block_fusion": block_fusion}
@@ -236,6 +242,12 @@ def evaluate(step: Callable, batches: Iterable[Mapping],
             if shape_bucket and per["prediction"].ndim == 5:
                 per["prediction"] = per["prediction"][
                     :, :, :true_yx[0], :, :true_yx[1]]
+            if debug_dir is not None:
+                try:
+                    debug_batch({**batch, "prediction": per["prediction"]},
+                                debug_dir, name_hint=batch["FileSetId"][0])
+                except Exception as exc:
+                    print("debug_batch failed:", exc)
             compute_metrics(per, batch, metrics_val, results, results_dict,
                             all_outputs, output_path, save_data, timing)
         pending.clear()
@@ -308,11 +320,8 @@ def run_evaluation_instance(opt, all_outputs: Dict, val_ids,
     batches, with ``noise`` applied, through :func:`evaluate`, which writes
     each image's artifacts under ``output_path`` when ``opt.save_data``
     and appends to ``all_outputs``, ``results`` and ``results_dict``.
-    ``kernels=False`` runs the step's plain versions."""
-    if debug_images:
-        raise NotImplementedError(
-            "--debug-images needs viz.py, which is not ported yet "
-            "(ROADMAP M8)")
+    ``kernels=False`` runs the step's plain versions; ``debug_images``
+    writes each image's debug strip under ``output_path/__images``."""
     if not kernels:
         step = functools.partial(step, kernels=False)
     loader = create_val_dataloader(opt, val_ids, data_transform_val)
@@ -320,7 +329,9 @@ def run_evaluation_instance(opt, all_outputs: Dict, val_ids,
                             metrics_val, shape_bucket=shape_bucket,
                             eval_batch=eval_batch, all_outputs=all_outputs,
                             output_path=output_path,
-                            save_data=opt.save_data, timing=timing)
+                            save_data=opt.save_data, timing=timing,
+                            debug_dir=(os.path.join(output_path, "__images")
+                                       if debug_images else None))
     for row in rows:
         print(row)
     if set(scores) & set(results_dict):

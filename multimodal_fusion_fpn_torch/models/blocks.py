@@ -55,6 +55,18 @@ strided 1x1 downsample of the cascades, the ``fully`` convs, the decoder
 and ``final1`` run the plain version (cuDNN on the card), as they run XLA
 convolutions in the JAX package.
 
+Dropout (``blocks.py:777-778``): a block with ``dropout`` > 0 drops
+elements of its output after the final ReLU in training, keeping each with
+probability 1 - p and scaling the kept ones by 1 / (1 - p), as flax's
+``nn.Dropout``; in eval it is the identity.  The masks come from the
+``torch.Generator`` that :func:`dropout_generator` installs (the train step
+does, from its ``generator`` argument); a training forward through a
+dropout block without one raises.  A stage with dropout > 0 leaves the
+kernels in eval and in training, as the JAX package takes it off its fused
+lowering (``fused_stage_bs``, ``blocks.py:262``): its convs run the plain
+version, and the pool after it the first-max backward (``reduce_window``
+there).
+
 Eval block fusion (``block_fusion``, the JAX package's ``MMF_FUSED_PAIR``
 / ``MMF_FUSED_CHAIN``, read there from the environment and here passed as
 an argument): "pair" runs each two consecutive kY = 1 convs of a block as
@@ -66,8 +78,9 @@ versions (``ConvX._fusion``).
 """
 
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -204,6 +217,46 @@ class BNFold(nn.Module):
         return s.to(dtype), b.to(dtype)
 
 
+# the generators of the dropout masks, innermost last (dropout_generator)
+_DROPOUT_GENERATORS: List[torch.Generator] = []
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: torch.Generator):
+    """Draw the dropout masks of the forwards inside from ``generator``
+    (on the device of the activations)."""
+    _DROPOUT_GENERATORS.append(generator)
+    try:
+        yield generator
+    finally:
+        _DROPOUT_GENERATORS.pop()
+
+
+def dropout_mask(shape: Tuple[int, ...], keep_prob: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """Bernoulli(``keep_prob``) keep mask of ``shape`` (bool), drawn from
+    ``generator`` on its device."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) < keep_prob
+
+
+def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout(p)``: in training each element kept with
+    probability 1 - p and scaled by 1 / (1 - p), the others 0; the identity
+    in eval or at p = 0."""
+    if not training or p <= 0.0:
+        return x
+    if not _DROPOUT_GENERATORS:
+        raise RuntimeError(
+            f"dropout {p} in training needs a generator: pass one to the "
+            "train step, or run the forward inside "
+            "blocks.dropout_generator(...)")
+    keep_prob = 1.0 - p
+    keep = dropout_mask(tuple(x.shape), keep_prob, _DROPOUT_GENERATORS[-1])
+    return torch.where(keep.to(x.device), x / keep_prob, torch.zeros(
+        (), dtype=x.dtype, device=x.device))
+
+
 Extents = Optional[Tuple[Optional[int], Optional[int], Optional[int]]]
 
 
@@ -244,12 +297,14 @@ class ConvX(nn.Module):
     (k//2 per axis) unless ``padding="valid"``; ``stride_z`` strides every
     conv along z and ``ds_stride_z`` the 1x1 downsample.  ``fused``: the
     block's convs may run the hand-written kernel (see the module note).
+    ``dropout``: the rate of the dropout after the final ReLU (training).
     """
 
     def __init__(self, ci: int, co: int, kernels: Sequence[Sequence[int]],
                  stride_z: int = 1, padding: str = "same",
                  residual: bool = True, downsample: bool = False,
-                 ds_stride_z: int = 1, fused: bool = False):
+                 ds_stride_z: int = 1, fused: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.convBlock = nn.ModuleList(
             _conv_bn(ci if i == 0 else co, co, k)
@@ -262,6 +317,7 @@ class ConvX(nn.Module):
         self.residual = residual
         self.ds_stride_z = ds_stride_z
         self.fused = fused
+        self.dropout = float(dropout)
 
     def _conv(self, x, s, b, w, relu, stride_z, kernels, ext):
         """-> (y, sums): in training a fused conv also returns the fp32
@@ -385,24 +441,30 @@ class ConvX(nn.Module):
             s, b = bn.folded(dt, cur, sums)
             i += 1
         out = self._residual(cur * s + b, x, kernels, ext)
-        return mask_extents(torch.relu(out), e)
+        return dropout(mask_extents(torch.relu(out), e), self.dropout,
+                       self.training)
 
 
 class EncoderStage(nn.ModuleList):
     """The '2plus3' stage: (1,3,3)x2, then (1,3,3)x2 + (3,1,1), or
     (1,3)x2, (1,3)x2 + (3,1) in 2D; a 1x1+BN projection when the channel
-    count changes.  3D input (B, Y, X, Z, C), 2D input (B, H, W, C)."""
+    count changes.  3D input (B, Y, X, Z, C), 2D input (B, H, W, C).
+    ``fused``: the stage takes the kernels (at most 64 channels and no
+    dropout, ``blocks.fused_stage_bs``)."""
 
-    def __init__(self, ci: int, co: int, ndim: int = 3):
+    def __init__(self, ci: int, co: int, ndim: int = 3,
+                 dropout: float = 0.0):
         if ndim == 3:
             k_a, k_b = ((1, 3, 3),) * 2, ((1, 3, 3),) * 2 + ((3, 1, 1),)
         else:
             k_a, k_b = ((1, 3),) * 2, ((1, 3),) * 2 + ((3, 1),)
-        fused = co <= FUSED_MAX_CHANNELS
+        fused = co <= FUSED_MAX_CHANNELS and dropout <= 0.0
         super().__init__([
-            ConvX(ci, co, k_a, downsample=ci != co, fused=fused),
-            ConvX(co, co, k_b, fused=fused)])
+            ConvX(ci, co, k_a, downsample=ci != co, fused=fused,
+                  dropout=dropout),
+            ConvX(co, co, k_b, fused=fused, dropout=dropout)])
         self.ndim = ndim
+        self.fused = fused
 
     def forward(self, x: torch.Tensor, kernels: bool = True,
                 ext: Extents = None,
@@ -442,35 +504,16 @@ class ZDimReduction(nn.ModuleList):
         return x
 
 
-def refuse_dropout(dropout: Sequence[float], encoders: Sequence[str] = ("",),
-                   decoder: bool = True) -> None:
-    """Raise for a net in training whose spec has dropout > 0 in a slot it
-    builds: the JAX package applies each block's dropout in training
-    (``blocks.py:777-778``) and then runs that stage off its fused kernels;
-    the port has no dropout yet (ROADMAP M8).  In eval dropout is the
-    identity.  Slots 0-4 are the encoder levels, whose stages are named
-    ``conv<level><suffix>`` for each suffix of ``encoders``; slots 5-8 the
-    decoder blocks, which a net without a decoder does not build."""
-    for slot, p in enumerate(dropout):
-        if p <= 0 or (slot >= 5 and not decoder):
-            continue
-        stages = ", ".join(f"conv{slot + 1}{sfx}" for sfx in encoders)
-        where = (f"encoder level {slot + 1} ({stages})" if slot < 5 else
-                 f"decoder block up_concat{9 - slot}")
-        raise NotImplementedError(
-            f"dropout slot {slot} ({where}) is {p}: the port does not "
-            f"apply dropout in training yet (ROADMAP M8)")
-
-
 class UpBlock2(nn.Module):
     """Decoder block of the single-modality nets: nearest upsample of the
     deeper map, concat with one skip, ConvX (3,3,1)x2 with a 1x1
     projection."""
 
-    def __init__(self, c_low: int, c_cur: int, upfactor: Sequence[int]):
+    def __init__(self, c_low: int, c_cur: int, upfactor: Sequence[int],
+                 dropout: float = 0.0):
         super().__init__()
         self.conv = ConvX(c_low + c_cur, c_cur, ((3, 3, 1),) * 2,
-                          downsample=True)
+                          downsample=True, dropout=dropout)
         self.upfactor = tuple(upfactor)
 
     def forward(self, skip, deeper, kernels: bool = True,
@@ -485,10 +528,11 @@ class UpBlockFusion(nn.Module):
     (``mode='concat'``): nearest upsample of the deeper map, concat, ConvX
     (3,3,1)x2 with a 1x1 projection."""
 
-    def __init__(self, c_low: int, c_cur: int, upfactor: Sequence[int]):
+    def __init__(self, c_low: int, c_cur: int, upfactor: Sequence[int],
+                 dropout: float = 0.0):
         super().__init__()
         self.conv = ConvX(c_low + 2 * c_cur, c_cur, ((3, 3, 1),) * 2,
-                          downsample=True)
+                          downsample=True, dropout=dropout)
         self.upfactor = tuple(upfactor)
 
     def forward(self, skip3d, skip2d, deeper, kernels: bool = True,

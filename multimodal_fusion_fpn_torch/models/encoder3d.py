@@ -5,9 +5,10 @@ inter-stage layout; every pool runs the hand-written kernel when
 ``kernels`` is True.
 
 The pool's backward follows the JAX package's default lowering per stage:
-the outputs of the fused stages (at most 64 channels, packed in the JAX
-package) pool with the Pallas kernel, whose backward sends the cotangent
-to every tied max; the wider stage-4 outputs pool with XLA's
+the outputs of the fused stages (at most 64 channels and no dropout,
+packed in the JAX package) pool with the Pallas kernel, whose backward
+sends the cotangent to every tied max; the outputs of the other stages
+(the wider stage 4, a stage with dropout) pool with XLA's
 ``reduce_window``, whose backward sends it to the first max.
 
 Under exact shape bucketing (eval) the loops also carry each level's true
@@ -21,14 +22,16 @@ from typing import Optional, Sequence
 
 import torch
 
-from multimodal_fusion_fpn_torch.models.blocks import FUSED_MAX_CHANNELS
 from multimodal_fusion_fpn_torch.ops.pool import (max_pool3d_cl,
                                                   max_pool3d_cl_plain)
 
 
-def _pool(x: torch.Tensor, window, kernels: bool) -> torch.Tensor:
+def _pool(x: torch.Tensor, window, kernels: bool,
+          stage: torch.nn.Module) -> torch.Tensor:
+    """The pool after ``stage``: all-ties backward after a fused stage,
+    first-max after the others."""
     pool = max_pool3d_cl if kernels else max_pool3d_cl_plain
-    return pool(x, window, first_max=x.shape[-1] > FUSED_MAX_CHANNELS)
+    return pool(x, window, first_max=not stage.fused)
 
 
 def pooled_ext(ext: Optional[tuple], window: Sequence[int]):
@@ -63,7 +66,7 @@ def run_3d_encoder(stages: Sequence[torch.nn.Module], x: torch.Tensor,
         convs.append(x)
         exts.append(ext)
         if lvl < len(stages) - 1:
-            x = _pool(x, pools[lvl], kernels)
+            x = _pool(x, pools[lvl], kernels, stage)
             ext = pooled_ext(ext, pools[lvl])
     return convs, exts
 
@@ -79,6 +82,7 @@ def run_2d_encoder(stages: Sequence[torch.nn.Module], x: torch.Tensor,
         exts.append(ext)
         if lvl < len(stages) - 1:
             wh, ww = pools[lvl]
-            x = _pool(x.unsqueeze(2), (wh, 1, ww), kernels).squeeze(2)
+            x = _pool(x.unsqueeze(2), (wh, 1, ww), kernels,
+                      stage).squeeze(2)
             ext = pooled_ext(ext, pools[lvl])
     return convs, exts

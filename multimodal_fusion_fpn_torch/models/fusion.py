@@ -22,8 +22,7 @@ from torch import nn
 from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
 from multimodal_fusion_fpn_torch.models.blocks import (Conv1x1, EncoderStage,
                                                        UpBlockFusion,
-                                                       ZDimReduction,
-                                                       refuse_dropout)
+                                                       ZDimReduction)
 from multimodal_fusion_fpn_torch.models.encoder3d import (run_2d_encoder,
                                                           run_3d_encoder)
 from multimodal_fusion_fpn_torch.models.unet3d import (NUM_REDUCTIONS,
@@ -76,19 +75,21 @@ class ModifiedUnet3D2D(nn.Module):
                  interpolate: Optional[str] = None):
         super().__init__()
         check_spec(spec)
-        ch = spec.channels
-        self.dropout = tuple(spec.dropout)
+        ch, drop = spec.channels, spec.dropout
         self.interpolate = interpolate
         cins = (1,) + tuple(ch[:4])
         for i in range(5):
-            setattr(self, f"conv{i + 1}", EncoderStage(cins[i], ch[i], 3))
-            setattr(self, f"conv{i + 1}_2d", EncoderStage(cins[i], ch[i], 2))
+            setattr(self, f"conv{i + 1}",
+                    EncoderStage(cins[i], ch[i], 3, drop[i]))
+            setattr(self, f"conv{i + 1}_2d",
+                    EncoderStage(cins[i], ch[i], 2, drop[i]))
             setattr(self, f"zdimRed{i + 1}",
                     ZDimReduction(ch[i], NUM_REDUCTIONS[i]))
         lows = (ch[4] * 2, ch[3], ch[2], ch[1])  # bottleneck concat first
         for i, lvl in enumerate((3, 2, 1, 0)):
             setattr(self, f"up_concat{lvl + 1}",
-                    UpBlockFusion(lows[i], ch[lvl], UPFACTORS[i]))
+                    UpBlockFusion(lows[i], ch[lvl], UPFACTORS[i],
+                                  drop[5 + i]))
         self.final1 = Conv1x1(ch[0], n_classes)
 
     def forward(self, volume: torch.Tensor, enface: torch.Tensor,
@@ -99,8 +100,6 @@ class ModifiedUnet3D2D(nn.Module):
         the true extents of the zero-padded inputs, or None.
         ``block_fusion``: None, "pair" or "chain", the eval block fusion
         of the 3D encoder stages (``blocks.ConvX``)."""
-        if self.training:
-            refuse_dropout(self.dropout, encoders=("", "_2d"))
         skips2d, exts2d = run_2d_encoder(
             [getattr(self, f"conv{i + 1}_2d") for i in range(5)], enface,
             POOLS_2D, kernels, ext2d)

@@ -17,8 +17,7 @@ import torch
 from torch import nn
 
 from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
-from multimodal_fusion_fpn_torch.models.blocks import (EncoderStage,
-                                                       refuse_dropout)
+from multimodal_fusion_fpn_torch.models.blocks import EncoderStage
 from multimodal_fusion_fpn_torch.models.encoder3d import run_2d_encoder
 from multimodal_fusion_fpn_torch.models.fusion import POOLS_2D
 from multimodal_fusion_fpn_torch.models.unet3d import (add_decoder,
@@ -33,20 +32,18 @@ class ModifiedUnet2D(nn.Module):
                  output_features: bool = False):
         super().__init__()
         check_spec(spec)
-        ch = spec.channels
-        self.dropout = tuple(spec.dropout)
+        ch, drop = spec.channels, spec.dropout
         cins = (1,) + tuple(ch[:4])
         for i in range(5):
-            setattr(self, f"conv{i + 1}_2d", EncoderStage(cins[i], ch[i], 2))
-        add_decoder(self, ch, None if output_features else n_classes)
+            setattr(self, f"conv{i + 1}_2d",
+                    EncoderStage(cins[i], ch[i], 2, drop[i]))
+        add_decoder(self, ch, None if output_features else n_classes, drop)
 
     def forward(self, enface: torch.Tensor, kernels: bool = True,
                 ext2d=None) -> torch.Tensor:
         """enface (B, H, W, 1) -> (B, H, W, 1, n_classes), or the features
         before ``final1``.  ``ext2d`` (h, w): the true extents of the
         zero-padded map, or None."""
-        if self.training:
-            refuse_dropout(self.dropout, encoders=("_2d",))
         skips, exts = run_2d_encoder(
             [getattr(self, f"conv{i + 1}_2d") for i in range(5)], enface,
             POOLS_2D, kernels, ext2d)

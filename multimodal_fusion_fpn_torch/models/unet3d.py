@@ -24,8 +24,7 @@ from torch import nn
 from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
 from multimodal_fusion_fpn_torch.models.blocks import (Conv1x1, EncoderStage,
                                                        UpBlock2,
-                                                       ZDimReduction,
-                                                       refuse_dropout)
+                                                       ZDimReduction)
 from multimodal_fusion_fpn_torch.models.encoder3d import (proj_depth_ext,
                                                           run_3d_encoder)
 from multimodal_fusion_fpn_torch.ops.dynamic_extent import masked_mean
@@ -66,13 +65,15 @@ def decode(net: nn.Module, skips, exts, kernels: bool) -> torch.Tensor:
     return up
 
 
-def add_decoder(net: nn.Module, ch, n_classes: Optional[int]) -> None:
-    """``up_concat1..4`` of 2-input blocks, and ``final1`` (None when
-    ``n_classes`` is None)."""
+def add_decoder(net: nn.Module, ch, n_classes: Optional[int],
+                dropout=(0.0,) * 9) -> None:
+    """``up_concat1..4`` of 2-input blocks, ``up_concat4`` .. ``up_concat1``
+    with the dropout of slots 5-8, and ``final1`` (None when ``n_classes``
+    is None)."""
     lows = (ch[4], ch[3], ch[2], ch[1])
     for i, lvl in enumerate((3, 2, 1, 0)):
         setattr(net, f"up_concat{lvl + 1}",
-                UpBlock2(lows[i], ch[lvl], UPFACTORS[i]))
+                UpBlock2(lows[i], ch[lvl], UPFACTORS[i], dropout[5 + i]))
     net.final1 = None if n_classes is None else Conv1x1(ch[0], n_classes)
 
 
@@ -84,17 +85,17 @@ class ModifiedUnet3D(nn.Module):
                  use_1x1: bool = True, classification: bool = False):
         super().__init__()
         check_spec(spec)
-        ch = spec.channels
-        self.dropout = tuple(spec.dropout)
+        ch, drop = spec.channels, spec.dropout
         self.classification = classification
         cins = (1,) + tuple(ch[:4])
         for i in range(5):
-            setattr(self, f"conv{i + 1}", EncoderStage(cins[i], ch[i], 3))
+            setattr(self, f"conv{i + 1}",
+                    EncoderStage(cins[i], ch[i], 3, drop[i]))
         if not classification:
             for i in range(5):
                 setattr(self, f"zdimRed{i + 1}",
                         ZDimReduction(ch[i], NUM_REDUCTIONS[i]))
-            add_decoder(self, ch, n_classes if use_1x1 else None)
+            add_decoder(self, ch, n_classes if use_1x1 else None, drop)
 
     def forward(self, volume: torch.Tensor, kernels: bool = True,
                 ext3d=None,
@@ -105,8 +106,6 @@ class ModifiedUnet3D(nn.Module):
         ``classification``.  ``ext3d`` (y, x, z): the true extents of the
         zero-padded volume, or None; ``block_fusion``: the eval block
         fusion of the encoder stages (``blocks.ConvX``)."""
-        if self.training:
-            refuse_dropout(self.dropout, decoder=not self.classification)
         skips, exts = run_3d_encoder(
             [getattr(self, f"conv{i + 1}") for i in range(5)], volume,
             POOLS_3D, kernels, ext3d, block_fusion)

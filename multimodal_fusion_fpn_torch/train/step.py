@@ -1,7 +1,12 @@
 """The train step (``multimodal_fusion_fpn_tpu/train/step.py:34-125``):
 forward in train mode, the loss, the backward, the optimizer step and the
 BatchNorm running-stat update, plus the per-sample Dice / BCE training
-metrics.
+metrics; and the eval step (``step.py:137-145``), one model's forward in
+eval mode (running-stat BatchNorm).
+
+The dropout masks of a step come from the ``torch.Generator`` it is given
+(the JAX step's ``rng``), drawn in the order of the forward; the trainer
+seeds one per step from (seed, epoch, step in the epoch).
 
 With ``accum_steps > 1`` the batch values carry a leading
 ``(accum_steps, micro_batch, ...)`` shape: every micro-batch runs from the
@@ -11,13 +16,15 @@ metrics are concatenated over micro-batches, the loss, its parts and scalar
 metrics averaged.
 """
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from multimodal_fusion_fpn_torch.metrics.device import (bce_scalar,
                                                         dice_per_sample)
+from multimodal_fusion_fpn_torch.models.blocks import dropout_generator
 from multimodal_fusion_fpn_torch.train.state import TrainState
 
 MODEL_KEYS = ("image", "mask", "slo", "faf", "weight")
@@ -32,10 +39,12 @@ def model_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     criterion: Callable, compute_train_metrics: bool = True,
                     accum_steps: int = 1, device="cuda") -> Callable:
-    """``step(state, batch, kernels=True) -> aux`` with aux = {'loss',
-    'parts', 'metrics'} (detached tensors); the step updates ``model``,
-    ``optimizer`` and ``state.step`` in place.  ``kernels`` chooses the
-    hand-written kernels or their plain versions."""
+    """``step(state, batch, kernels=True, generator=None) -> aux`` with
+    aux = {'loss', 'parts', 'metrics'} (detached tensors); the step updates
+    ``model``, ``optimizer`` and ``state.step`` in place.  ``kernels``
+    chooses the hand-written kernels or their plain versions; ``generator``
+    (on ``device``) draws the dropout masks, which a model with dropout
+    needs."""
 
     def metrics_from(out, b):
         if not compute_train_metrics or "mask" not in b:
@@ -51,13 +60,22 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
                 metrics_from(out, b))
 
-    def step(state: TrainState, batch, kernels: bool = True):
+    def step(state: TrainState, batch, kernels: bool = True,
+             generator: Optional[torch.Generator] = None):
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("state holds another model or optimizer than "
                              "the step was made for")
         model.train()
         optimizer.zero_grad(set_to_none=True)
         b = model_batch(batch, device)
+        with (dropout_generator(generator) if generator is not None
+              else contextlib.nullcontext()):
+            loss, parts, metrics = run(b, kernels)
+        optimizer.step()
+        state.step += 1
+        return {"loss": loss, "parts": parts, "metrics": metrics}
+
+    def run(b, kernels):
         if accum_steps == 1:
             loss, parts, metrics = forward_backward(b, kernels, 1)
         else:
@@ -75,8 +93,23 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             parts = {k: v / accum_steps for k, v in parts.items()}
             metrics = {k: v if v.dim() else v / accum_steps
                        for k, v in metrics.items()}
-        optimizer.step()
-        state.step += 1
-        return {"loss": loss, "parts": parts, "metrics": metrics}
+        return loss, parts, metrics
 
     return step
+
+
+def make_eval_step(model: nn.Module, device="cuda") -> Callable:
+    """``eval_step(batch, kernels=True) -> the model's outputs``: one
+    forward in eval mode (running-stat BatchNorm, dropout off) without
+    gradients, on ``device``; the model returns to the mode it was in."""
+
+    @torch.inference_mode()
+    def eval_step(batch, kernels: bool = True):
+        was_training = model.training
+        model.eval()
+        try:
+            return model(model_batch(batch, device), kernels=kernels)
+        finally:
+            model.train(was_training)
+
+    return eval_step

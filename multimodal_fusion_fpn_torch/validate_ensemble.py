@@ -32,9 +32,9 @@ names the variant (``vrc_<mask variant>``, ``paths.py``).
 :func:`run` runs on the card (``device="cuda"``) through the kernels, or
 on the CPU when the caller passes ``device="cpu"``; nothing falls back to
 the CPU or to the plain versions by itself.  ``kernels=False`` runs the
-plain versions on the card (for comparisons).  ``--debug-images`` raises
-``NotImplementedError``: ``viz.py`` is not ported yet (ROADMAP M8).  The
-eval block fusion (``MMF_FUSED_CHAIN`` / ``MMF_FUSED_PAIR`` in the JAX
+plain versions on the card (for comparisons).  ``--debug-images`` writes
+each image's strip (``viz.debug_batch``) under ``__images``.  The eval
+block fusion (``MMF_FUSED_CHAIN`` / ``MMF_FUSED_PAIR`` in the JAX
 package) stays off.
 """
 
@@ -66,8 +66,7 @@ def extend_parser(parser):
                         help="Noise applied to one modality. "
                              "Format: <modality>-<noise_type>")
     parser.add_argument("--noise-level", type=float, default=None)
-    parser.add_argument("--debug-images", action="store_true",
-                        help="Not ported yet: raises NotImplementedError.")
+    parser.add_argument("--debug-images", action="store_true")
     parser.add_argument("--test-dataset", type=str, default=None)
     parser.add_argument("--eval-split", type=str, default=None)
     parser.add_argument("--save-all-outputs", action="store_true")
@@ -127,10 +126,6 @@ def run(argv=None, device="cuda", kernels: bool = True):
     t_start = time.perf_counter()
     parser = extend_parser(build_parser())
     args = parser.parse_args(argv)
-    if args.debug_images:
-        raise NotImplementedError(
-            "--debug-images needs viz.py, which is not ported yet "
-            "(ROADMAP M8)")
     config = derive(args)
     print(pretty_print(config))
 
@@ -232,7 +227,7 @@ def run(argv=None, device="cuda", kernels: bool = True):
     run_evaluation_instance(
         opt, all_outputs, val_ids, data_transform_val, step,
         opt.metrics_val, results, results_dict, output_path,
-        noise=args.noise, noise_seed=seed,
+        noise=args.noise, debug_images=args.debug_images, noise_seed=seed,
         shape_bucket=args.eval_shape_bucket, eval_batch=args.eval_batch,
         kernels=kernels, timing=timing)
     t_eval = time.perf_counter() - t_eval

@@ -16,7 +16,7 @@ Same numpy inputs through both, fp32, rtol = atol = 1e-5 (the tolerance of
   ``jax.vjp(banded.banded_conv_blocked)``;
 * the argument checks of the CUDA path (run here directly), the routing
   (4 K10 forwards per member, 4 forwards + 4 weight gradients and no data
-  gradient per train step at the ini widths) and the dropout guard.
+  gradient per train step at the ini widths).
 
 The JAX package's ``_PALLAS_MODE`` stays "off"; the Pallas kernel is called
 directly.
@@ -35,7 +35,6 @@ from multimodal_fusion_fpn_tpu.ops.pallas.banded_conv import (
 
 from multimodal_fusion_fpn_torch import losses as tlosses
 from multimodal_fusion_fpn_torch.models import blocks as tblocks
-from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
 from multimodal_fusion_fpn_torch.models.zoo import build_model
 from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
 from multimodal_fusion_fpn_torch.train.optim import sgd
@@ -241,22 +240,3 @@ def test_routing_per_train_step(spies, full_model):
                         "BCE loss": tlosses.bce_loss()})
     make_train_step(model, opt, crit, device="cpu")(state, _batch())
     assert spies == {"fwd": 4, "wgrad": 4, "dgrad": 0}
-
-
-@pytest.mark.parametrize("slot,where", [(0, "encoder level 1"),
-                                        (4, "encoder level 5"),
-                                        (5, "up_concat4"), (8, "up_concat1")])
-def test_dropout_refused_in_training_only(slot, where):
-    """ROADMAP Queue 3 item 1: a spec with dropout > 0 in any slot cannot
-    train (the port has no dropout yet); eval, where dropout is the
-    identity, runs."""
-    drop = tuple(0.25 if i == slot else 0.0 for i in range(9))
-    spec = ArchSpec(channels=(2, 4, 8, 16, 32), dropout=drop)
-    model = build_model(_cfg(), spec=spec, device="cpu")
-    batch = {k: torch.from_numpy(v) for k, v in _batch(1).items()}
-    with torch.no_grad():
-        assert model(batch)["prediction"].shape == (1, 1, 8, 1, 32)
-    model.train()
-    with pytest.raises(NotImplementedError,
-                       match=f"dropout slot {slot} .*{where}.*ROADMAP M8"):
-        model(batch)

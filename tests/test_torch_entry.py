@@ -24,7 +24,8 @@
   file's one JAX compile and trace: the ensemble step, at LLVM level 0 as
   the port's other JAX references (``_at_level_0``); the JAX trees'
   templates come from the JAX package's name table (``_jax_template``,
-  ``_shape_template``).
+  ``_shape_template``).  Then both again with ``--debug-images``: the same
+  strips below their label bands, within one grey level.
 * VRC end to end: the same on a synthetic VRC tree of the HRF case's
   shapes (``vrc``, the hybrid on the OCT-grid mask ``sq_proj_dil``),
   whose JAX step is the HRF run's executable; its ``global_metrics.json``
@@ -175,11 +176,6 @@ def test_output_path_matches_jax(run_dirs, monkeypatch):
     assert any("hrf_fusion-to-hrf" in p for p in seen)
     assert any("split-to-s2--oct" in p for p in seen)
     assert len(find_topk_checkpoints(model_path)) == MEMBERS
-
-
-def test_debug_images_raise(run_dirs):
-    with pytest.raises(NotImplementedError, match="M8"):
-        tve.run(_argv(run_dirs, ["--debug-images"]), device="cpu")
 
 
 # --- checkpoints ---------------------------------------------------------
@@ -459,7 +455,7 @@ def _entry_runs(argv, paths, tmp_path_factory):
 def both_runs(run_dirs, tmp_path_factory):
     """:func:`_entry_runs` on ``tests/test_e2e.py``'s HRF argv."""
     argv = _argv(run_dirs, ["--save-all-outputs", "--eval-batch", "2"])
-    return _entry_runs(argv, run_dirs["paths"], tmp_path_factory)[:3]
+    return _entry_runs(argv, run_dirs["paths"], tmp_path_factory)
 
 
 def _close(got, want, rel=1e-4, what=""):
@@ -478,7 +474,7 @@ def test_entry_point_matches_jax(both_runs):
     every pixel for ``test.png``, on the whole image for the metrics), and
     at least one image does; ``test_soft.png`` within one grey level;
     ``global_metrics.json`` ``{}`` in both; a second run of each skips."""
-    out, info, skipped = both_runs
+    out, info, skipped = both_runs[:3]
     assert skipped == [0, 0]
     tfiles, jfiles = _tree(out["torch"]), _tree(out["jax"])
     assert sorted(tfiles) == sorted(jfiles)
@@ -546,6 +542,36 @@ def test_entry_point_matches_jax(both_runs):
     tcsv = open(tfiles["test_output.csv"]).read().splitlines()
     jcsv = open(jfiles["test_output.csv"]).read().splitlines()
     assert tcsv[0] == jcsv[0] and len(tcsv) == len(jcsv) == 3
+
+
+def test_debug_images_match_jax(run_dirs, both_runs):
+    """``--debug-images`` (and ``--force-repeat``) through both entry
+    points on the HRF run: one strip per image under ``__images``, named
+    by its FileSetId, of the same shape, the panels below the 32-row label
+    band within one grey level of JAX's (its labels are PIL's glyphs, the
+    port's its own)."""
+    out, _, _, cwd, template = both_runs
+    argv = _argv(run_dirs, ["--save-all-outputs", "--eval-batch", "2",
+                            "--debug-images", "--force-repeat"])
+    prev = os.getcwd()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            os.chdir(cwd["jax"])
+            _run_jax(argv, template)
+            os.chdir(cwd["torch"])
+            tve.run(argv, device="cpu")
+    finally:
+        os.chdir(prev)
+    strips = {t: {n: p for n, p in _tree(out[t]).items()
+                  if n.startswith("__images/")} for t in out}
+    assert sorted(strips["torch"]) == sorted(strips["jax"])
+    assert len(strips["jax"]) == 2
+    for name, path in strips["jax"].items():
+        j = np.asarray(iio.imread(path)).astype(int)
+        t = imread(strips["torch"][name]).astype(int)
+        assert t.shape == j.shape == (32 + 256, 4 * 256)
+        assert np.abs(t[32:] - j[32:]).max() <= 1
+        assert t[:32].max() == 255 and t[:32].min() == 0
 
 
 # --- VRC end to end -------------------------------------------------------

@@ -797,7 +797,8 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Nor a library that the card's machine lacks and the JAX package's
-    host code uses: imageio, PIL, scikit-learn, pandas, msgpack, flax."""
+    host code uses: imageio, PIL, scikit-learn, pandas, msgpack, flax,
+    matplotlib."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     files = [os.path.join(root, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(root,
@@ -809,7 +810,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax",
                                "multimodal_fusion_fpn_tpu", "imageio",
-                               "PIL", "sklearn", "pandas", "msgpack"), (
+                               "PIL", "sklearn", "pandas", "msgpack",
+                               "matplotlib"), (
                 path, mod)
 
 

@@ -28,7 +28,6 @@ in the two packages, which moves single gradient tensors by more.
 """
 
 import concurrent.futures
-import re
 import types
 
 import jax
@@ -296,25 +295,6 @@ def test_build_model_builds_every_zoo_name():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             build_model(_cfg("FPN"), spec=spec)
-
-
-@pytest.mark.parametrize("name,where", [("FPN", "encoder level 2 (conv2)"),
-                                        ("FPN2D",
-                                         "encoder level 2 (conv2_2d)")])
-def test_single_modality_nets_refuse_dropout_in_training(name, where):
-    """The hybrid's dropout guard (``blocks.refuse_dropout``) in the 3D and
-    the en-face nets: eval runs, training raises, naming the stage."""
-    drop = (0.0, 0.25) + (0.0,) * 7
-    spec = ArchSpec((2, 4, 8, 16, 32), dropout=drop)
-    model = build_model(_cfg(name), spec=spec, device="cpu")
-    batch = _torch(_batch(1))
-    with torch.no_grad():
-        assert model(batch)["prediction"].shape == (1, 1, 8, 1, 32)
-    model.train()
-    with pytest.raises(NotImplementedError,
-                       match=rf"dropout slot 1 \({re.escape(where)}\).*"
-                             "ROADMAP M8"):
-        model(batch)
 
 
 def test_ensemble_averages_every_output(tiny_spec):
