@@ -261,13 +261,35 @@ Phases, each of which fails the run on any error:
    resumed state is held as (b).  (d) A
    TRAIN_SERVE_EPOCHS-epoch fp32 run's five ``epoch=*.ckpt`` served by
    ``validate_ensemble.run`` with ``--debug-images``.
-13. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+13. Data parallelism (``dp_phase``), with the kernels built above and
+   phase 5's weights.  (a) ``data=1`` over NCCL in this process, bf16 B=4
+   at phase 5's crop shapes and batch: the synced and the per-replica
+   ``make_dp_train_step`` against ``make_train_step`` bit for bit (the
+   loss, every gradient and the state dict; cuDNN's deterministic
+   algorithms on, the single-process step run twice to show it
+   repeatable), each with phase 5's per-step launches exactly.  (b)
+   DP_RANKS processes sharing the card over gloo (``dp_spawn``: a
+   ``FileStore`` group, no torchrun): fp32 at a global B=2, the synced step against the
+   single-process step on the global batch and the per-replica step
+   against the mean of each shard's single-process step (the loss, the
+   running stats and all gradients at phase 5's fp32 bounds, on each
+   rank); bf16 at B=4, the ranks' state bit-identical, the losses finite
+   and each rank's launches those of one single-process step at B=2.
+   (c) In the same processes, ``train.run`` with ``--mesh data=2`` (the
+   group's gloo), bf16, DP_EPOCHS epochs of DP_VISITS x
+   DP_MULTIPLIER crops at a global batch of 4: each rank's launches equal
+   its steps x (b)'s per-step counts plus its eval forwards x phase 2's
+   per-forward counts (rank 1 validates nothing), rank 0's artifacts as in
+   phase 12, rank 1 writes no file; the ms per step is printed, labelled
+   as gloo on a shared card, not a speed of data parallelism.
+14. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8, and beside them the entry point's
    bf16 run of phase 10, ``launches_entry_point``, phase 11's bf16
    kernel runs, ``launches_vrc`` (both paths) and ``launches_vrc_paths``
-   (each), and phase 12's bf16 run, ``launches_train_entry``; max-abs-err
+   (each), phase 12's bf16 run, ``launches_train_entry``, and each rank's
+   run of phase 13 (c), ``launches_data_parallel``; max-abs-err
    of its fp32 comparisons;
    per-step times summed over the bf16 B=4 calls (for the bucketed paths
    one bucketed ensemble step of 5 members, where the launches count the
@@ -494,6 +516,15 @@ TRAIN_SPREAD = 3.0
 # (up_concat3)
 TRAIN_DROPOUT = (0.0, 0.1, 0.0, 0.0, 0.0, 0.0, 0.1, 0.0, 0.0)
 TRAIN_DROPOUT_STAGES = ("resensnet.conv2", "resensnet.conv2_2d")
+# phase 13: data parallelism.  (b) and (c) run DP_RANKS processes sharing
+# the card over gloo; (c) trains DP_EPOCHS epochs over DP_VISITS training
+# visits of phase 10's shape, DP_MULTIPLIER crops of phase 5's shapes per
+# visit and epoch, a global batch of 4 (2 per rank), bf16
+DP_RANKS = 2
+DP_VISITS = 4
+DP_MULTIPLIER = 2
+DP_EPOCHS = 2
+DP_TIMEOUT = 300         # s for the spawned ranks; then they are stopped
 
 
 def emit(obj):
@@ -3185,6 +3216,311 @@ def train_entry_phase(card, per_step, per_forward, sd):
     return failures, got
 
 
+def dp_step_fn(tr, mesh, bn_sync):
+    """A data-parallel step on ``tr``'s model from its last ``reset``."""
+    from multimodal_fusion_fpn_torch.parallel.step import make_dp_train_step
+    return make_dp_train_step(tr.model, tr.state.optimizer, tr.crit, mesh,
+                              bn_sync=bn_sync, device=tr.device)
+
+
+def same_state(a, b):
+    """The first tensor of (grads, state dict) ``a`` that is not ``b``'s
+    bit for bit, or None."""
+    import torch
+    for da, db in zip(a, b):
+        for k, v in da.items():
+            if not torch.equal(v, db[k]):
+                return k
+    return None
+
+
+def dp_nccl_check(cfg, sd, per_step_b4):
+    """Phase 13 (a): data=1 over NCCL in this process, bf16 B=4 at phase
+    5's crop shapes (phase 5's batch): each mode's step against
+    ``make_train_step`` bit for bit, with phase 5's launches exactly.
+    cuDNN's deterministic algorithms on, and the single-process step run
+    twice, so that a difference is the mesh's and not run-to-run noise."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.parallel.mesh import make_mesh
+    batch = make_batch(4, 4)
+    tr = Trainer(cfg, torch.bfloat16, "cuda")
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_mesh("data=1", device="cuda")
+            runs = {}
+            for name in ("single", "single_again", "synced", "per_replica"):
+                tr.reset(sd)
+                step = (tr.step_fn if name.startswith("single") else
+                        dp_step_fn(tr, mesh, name == "synced"))
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                aux = step(tr.state, batch)
+                torch.cuda.synchronize()
+                runs[name] = (aux, tr.snapshot(), ops.kernel_launches())
+        finally:
+            dist.destroy_process_group()
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = cudnn
+    ref = runs["single"]
+    repeatable = same_state(runs["single_again"][1], ref[1]) is None
+    rec = {"phase": "dp_nccl", "backend": "nccl", "data": 1, "batch": 4,
+           "dtype": "torch.bfloat16", "single_step_repeatable": repeatable}
+    ok = repeatable
+    for mode in ("synced", "per_replica"):
+        aux, snap, launches = runs[mode]
+        diff = same_state(snap, ref[1])
+        same_loss = torch.equal(aux["loss"], ref[0]["loss"])
+        counted = {k: launches.get(k, 0) for k in KERNELS} == {
+            k: per_step_b4.get(k, 0) for k in KERNELS}
+        rec[mode] = {"bit_equal": diff is None and same_loss,
+                     "first_difference": diff, "loss": float(aux["loss"]),
+                     "launches_match_phase_5": counted}
+        ok = ok and diff is None and same_loss and counted
+    return ok, rec
+
+
+def dp_reference(tr, sd, batch, bn_sync):
+    """The single-process reference of one data-parallel step of the global
+    ``batch`` over DP_RANKS ranks: synced, ``make_train_step`` on the whole
+    batch; per-replica, the mean over the shards of each shard's loss,
+    gradients and new running stats.  ((aux, grads, state dict))."""
+    import torch
+    if bn_sync:
+        tr.reset(sd)
+        aux = tr.step(batch)
+        return (aux, *tr.snapshot())
+    runs = []
+    n = len(batch["image"]) // DP_RANKS
+    for r in range(DP_RANKS):
+        tr.reset(sd)
+        aux = tr.step({k: v[r * n:(r + 1) * n] for k, v in batch.items()})
+        runs.append((aux, *tr.snapshot()))
+    mean = lambda ts: torch.stack(ts).mean(0)  # noqa: E731
+    grads = {k: mean([g[k] for _, g, _ in runs]) for k in runs[0][1]}
+    state = {k: (mean([s[k] for _, _, s in runs])
+                 if k.endswith(("running_mean", "running_var")) else v)
+             for k, v in runs[0][2].items()}
+    return {"loss": mean([a["loss"].float() for a, _, _ in runs])}, grads, \
+        state
+
+
+def _dp_entry(rank, fn, store, args):
+    import os
+    import torch.distributed as dist
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS),
+                      LOCAL_RANK=str(rank))
+    dist.init_process_group("gloo", store=dist.FileStore(store, DP_RANKS),
+                            rank=rank, world_size=DP_RANKS)
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_spawn(fn, store, args):
+    """``fn(rank, *args)`` on DP_RANKS spawned processes joined in a gloo
+    group over a ``FileStore`` at ``store``, with torchrun's ``RANK`` /
+    ``WORLD_SIZE`` / ``LOCAL_RANK`` set.  A rank's exception is raised
+    here; past DP_TIMEOUT every rank is stopped and TimeoutError raised."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_dp_entry, args=(fn, store, args),
+                             nprocs=DP_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in ctx.processes:
+                p.join()
+            raise TimeoutError(f"ranks still running after {DP_TIMEOUT} s")
+
+
+def dp_rank(rank, out, sd, argv):
+    """Phase 13 (b) and (c) on one of DP_RANKS processes sharing the card
+    over gloo (:func:`dp_spawn`).  Writes ``rank{rank}.pt`` in
+    ``out``: per dtype and mode the loss, the launches and the state
+    (fp32: and the gradients, and on rank 0 the single-process
+    references), and the entry point's run."""
+    import os
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.parallel.mesh import (init_mesh,
+                                                           shard_batch)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_mesh("data=2", device="cuda")
+    cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
+                          fusion_modality="slo", number_of_outputs=1)
+    res = {"device": str(mesh.device), "backend": mesh.data.backend}
+    for tag, dt, B in (("fp32", torch.float32, 2),
+                       ("bf16", torch.bfloat16, 4)):
+        tr = Trainer(cfg, dt, "cuda")
+        batch = make_batch(B, 13)
+        for sync in (True, False):
+            tr.reset(sd)
+            step = dp_step_fn(tr, mesh, sync)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            aux = step(tr.state, shard_batch(batch, mesh))
+            torch.cuda.synchronize()
+            launches = ops.kernel_launches()
+            grads, state = tr.snapshot()
+            res[(tag, sync)] = {
+                "aux": aux, "launches": launches,
+                "state": {k: v.cpu() for k, v in state.items()},
+                "grads": ({k: v.cpu() for k, v in grads.items()}
+                          if tag == "fp32" else None)}
+            if tag == "fp32" and rank == 0:
+                ref = dp_reference(tr, sd, batch, sync)
+                res[("ref", sync)] = tuple(
+                    {k: v.cpu() if torch.is_tensor(v) else v
+                     for k, v in d.items()} for d in ref)
+        del tr
+        torch.cuda.empty_cache()
+    info, files, launches, _ = train_run(
+        argv + ["--mesh", f"data={DP_RANKS}"],
+        os.path.join(out, f"entry{rank}"))
+    res["entry"] = {"info": info, "files": sorted(files),
+                    "launches": launches,
+                    "last": (train_state(files)[2] if "last.ckpt" in files
+                             else None)}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def dp_phase(card, cfg, sd, per_step_b4, per_forward):
+    """Phase 13, data parallelism on the card (module note): the failures
+    and the launches of each rank's entry-point run."""
+    import os
+    import tempfile
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    t0 = time.time()
+    failures = []
+
+    def check(ok, rec, what):
+        emit(dict(rec, ok=bool(ok), seconds=time.time() - t0))
+        if not ok:
+            failures.append(f"data parallelism: {what}")
+
+    ok, rec = dp_nccl_check(cfg, sd, per_step_b4)
+    check(ok, rec, "data=1 over nccl is not make_train_step")
+
+    # the launches of one bf16 step at each rank's share of B=4
+    tr = Trainer(cfg, torch.bfloat16, "cuda")
+    tr.reset(sd)
+    ops.reset_launches()
+    tr.step(make_batch(4 // DP_RANKS, 13))
+    torch.cuda.synchronize()
+    per_step_b2 = ops.kernel_launches()
+    del tr
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = train_tree(os.path.join(tmp, "tree"), DP_VISITS, 1,
+                           ENTRY_OCT, ENTRY_SLO, 33)
+        argv = train_argv(paths, "bf16", DP_EPOCHS, 4, DP_MULTIPLIER)
+        t_spawn = time.time()
+        try:
+            dp_spawn(dp_rank, os.path.join(tmp, "store"),
+                     (tmp, {k: v.cpu() for k, v in sd.items()}, argv))
+        except Exception as exc:  # a rank's failure fails the phase
+            check(False, {"phase": "dp_ranks", "error": str(exc)[-2000:]},
+                  "a rank failed")
+            return failures, [{} for _ in range(DP_RANKS)]
+        t_spawn = time.time() - t_spawn
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+
+    # (b) fp32 B=2 against the single-process references
+    for sync in (True, False):
+        aux_r, grads_r, state_r = ranks[0][("ref", sync)]
+        rec = {"phase": "dp_shared_card_fp32", "backend": "gloo",
+               "ranks": DP_RANKS, "devices": [r["device"] for r in ranks],
+               "batch": 2, "bn_sync": sync, "card": card}
+        ok = True
+        for r, res in enumerate(ranks):
+            got = res[("fp32", sync)]
+            ok_f, cmp = compare_forward(
+                (got["aux"], None, got["state"]),
+                (aux_r, None, state_r), torch.float32)
+            names = list(grads_r)
+            cos, ratio, _ = grad_agreement(_cat(got["grads"], names),
+                                           _cat(grads_r, names))
+            ok_g = cos >= 0.9999 and abs(ratio - 1) <= 1e-3
+            rec[f"rank{r}"] = dict(cmp, grad_cos=cos, grad_ratio=ratio)
+            ok = ok and ok_f and ok_g
+        check(ok, rec, f"fp32 bn_sync={sync} against its reference")
+
+    # (b) bf16 B=4: bit-identical ranks, finite losses, phase 5's launches
+    # at each rank's B=2
+    for sync in (True, False):
+        got = [res[("bf16", sync)] for res in ranks]
+        diff = same_state((got[0]["state"],), (got[1]["state"],))
+        want = {k: per_step_b2.get(k, 0) for k in KERNELS}
+        counts = [{k: g["launches"].get(k, 0) for k in KERNELS}
+                  for g in got]
+        losses = [float(g["aux"]["loss"]) for g in got]
+        ok = (diff is None and all(np.isfinite(losses))
+              and all(c == want for c in counts))
+        check(ok, {"phase": "dp_shared_card_bf16", "backend": "gloo",
+                   "ranks": DP_RANKS, "batch": 4, "bn_sync": sync,
+                   "ranks_bit_identical": diff is None,
+                   "first_difference": diff, "losses": losses,
+                   "launches": counts, "expected": want, "card": card},
+              f"bf16 bn_sync={sync}: ranks, losses or launches")
+
+    # (c) the entry point with --mesh data=2, rank 0's artifacts
+    infos = [res["entry"]["info"] for res in ranks]
+    files = ranks[0]["entry"]["files"]
+    n_steps = DP_EPOCHS * DP_VISITS * DP_MULTIPLIER // 4
+    got = [{k: res["entry"]["launches"].get(k, 0) for k in KERNELS}
+           for res in ranks]
+    want = [{k: info["steps"] * per_step_b2.get(k, 0)
+             + info["eval_forwards"] * per_forward.get(k, 0)
+             for k in KERNELS} for info in infos]
+    ckpts = [f for f in files if f.startswith("epoch=")]
+    ok = (got == want and all(i["steps"] == n_steps for i in infos)
+          and infos[0]["losses"] == infos[1]["losses"]
+          and all(np.isfinite(infos[0]["losses"]))
+          and infos[1]["eval_forwards"] == 0
+          and len(ckpts) == DP_EPOCHS and "last.ckpt" in files
+          and ranks[0]["entry"]["last"] == n_steps
+          and "curves.json" in files and "curves.svg" in files
+          and "resume.ckpt" not in files
+          and any(f.startswith("images/") for f in files)
+          and not ranks[1]["entry"]["files"])
+    check(ok, {"phase": "dp_entry", "backend": "gloo", "ranks": DP_RANKS,
+               "steps": [i["steps"] for i in infos],
+               "eval_forwards": [i["eval_forwards"] for i in infos],
+               "launches": got, "expected": want, "files_rank0": files,
+               "files_rank1": ranks[1]["entry"]["files"],
+               "losses": infos[0]["losses"]},
+          "the entry point under --mesh data=2")
+    tm = infos[0]["timing"]
+    emit({"phase": "dp_entry_rate",
+          "label": "gloo, two ranks sharing one card: not a speed of data "
+                   "parallelism",
+          "ms_per_step_trainer": 1e3 * tm["step"] / infos[0]["steps"],
+          "seconds_entry": [i["seconds"] for i in infos],
+          "seconds_spawn": t_spawn, "card": card})
+    emit({"phase": "dp_done", "ok": not failures,
+          "seconds": time.time() - t0, "card": card})
+    return failures, got
+
+
 def per_step(records, field):
     return sum(r[field] * r["calls_per_step"] for r in records)
 
@@ -3642,7 +3978,13 @@ def main() -> int:
         card, main_launches["train"], shapes["bf16_B4"]["launches"], sds[0])
     failures += train_failures
 
-    # --- 13. summary ------------------------------------------------------
+    # --- 13. data parallelism ---------------------------------------------
+    dp_failures, dp_launches = dp_phase(
+        card, cfg, sds[0], main_launches["train"],
+        shapes["bf16_B4"]["launches"])
+    failures += dp_failures
+
+    # --- 14. summary ------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
         prefix = RECORD_PREFIX.get(path, "")
@@ -3664,6 +4006,7 @@ def main() -> int:
             "launches_bucketed_serving": main_launches["bucketed"][name],
             "launches_entry_point": main_launches["entry"][name],
             "launches_train_entry": main_launches["train_entry"][name],
+            "launches_data_parallel": [r.get(name, 0) for r in dp_launches],
             "launches_vrc": sum(v[name] for v in vrc_launches.values()),
             "launches_vrc_paths": {p: v[name]
                                    for p, v in vrc_launches.items()},

@@ -15,8 +15,10 @@ shape-bucketed serving (:func:`eval.harness.evaluate`), the train step
 multimodal_fusion_fpn_torch.validate_ensemble``) over the HRF and VRC
 data pipelines (:mod:`data`), the configs, the noise, the checkpoints,
 the per-image and global pixel metrics (:mod:`metrics`, without
-scikit-learn) and the harness's artifacts.  Not yet: the trainer and its
-entry point, ``viz.py`` and the data x space mesh.
+scikit-learn) and the harness's artifacts, the training runtime and its
+entry point (:mod:`train`, ``python -m multimodal_fusion_fpn_torch.train``),
+and data parallelism over processes (:mod:`parallel`, ``--mesh data=N``).
+Not yet: the space axis of the mesh.
 """
 
 __version__ = "0.1.0"

@@ -18,9 +18,10 @@ Crop types (same semantics as the reference, ``config.py:5-17``):
 
 Extensions of the JAX package (new flags; all default to
 parity-preserving values): ``--precision``, ``--mesh``, ``--bn-sync``.
-On one card (ROADMAP M10) the training entry point refuses ``--mesh``
-(``NotImplementedError``) and ``--bn-sync`` has nothing to synchronize;
-serving ignores both.
+The training entry point runs ``--mesh data=N`` as N processes
+(torchrun), with per-replica BatchNorm unless ``--bn-sync``; ``space=M``
+with M > 1 raises ``NotImplementedError`` (not ported yet).  Serving
+ignores ``--mesh`` and ``--bn-sync``.
 """
 
 import argparse
@@ -77,8 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Compute dtype for the model. Parameters and "
                              "batch-norm statistics are always fp32.")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="Device mesh spec 'data=N' or 'data=N,space=M'. "
-                             "Default: all local devices on the data axis.")
+                        help="Process mesh spec 'data=N' (one process per "
+                             "rank, under torchrun). Default: data=WORLD_SIZE "
+                             "when WORLD_SIZE > 1.")
     parser.add_argument("--bn-sync", action="store_true",
                         help="Synchronize batch-norm statistics across data "
                              "shards (reference parity is per-replica: off).")

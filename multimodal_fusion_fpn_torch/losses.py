@@ -1,10 +1,18 @@
 """Losses of the port (``multimodal_fusion_fpn_tpu/losses.py``): pure
 functions over dicts of tensors in the reference layout, computed in the
-prediction's dtype as the JAX ones are."""
+prediction's dtype as the JAX ones are.
+
+Under synced data parallelism (``parallel.comm.synced``) each loss is the
+global batch's on every rank: the Dice sums over the batch are all-reduced
+before the epsilons and the ratio, as on one device; the BCE is the mean
+of the shards' means.  Both reductions are differentiable."""
 
 from typing import Callable, Dict, Optional
 
 import torch
+
+from multimodal_fusion_fpn_torch.parallel.comm import (all_reduce_sum,
+                                                      sync_group)
 
 
 def _clamped_log(v: torch.Tensor, log, at: float) -> torch.Tensor:
@@ -31,7 +39,12 @@ def bce_loss(output_key: str = "prediction", target_key: str = "mask"):
         gt = target[target_key].reshape(-1).to(pred.dtype)
         log_p = _clamped_log(pred, torch.log, 0.0)
         log_1p = _clamped_log(pred, lambda v: torch.log1p(-v), 1.0)
-        return -torch.mean(gt * log_p + (1.0 - gt) * log_1p)
+        loss = -torch.mean(gt * log_p + (1.0 - gt) * log_1p)
+        group = sync_group()
+        if group is not None:
+            # the mean of the equal shards' means
+            loss = all_reduce_sum(loss, group) / group.size
+        return loss
     return fn
 
 
@@ -50,8 +63,14 @@ def dice_loss_joint(output_key: str = "prediction",
         gt = target[target_key].reshape(shape[0], shape[1], -1).to(pred.dtype)
         if force_binary:
             gt = (gt > threshold).to(pred.dtype)
-        intersection = (pred * gt).sum(dim=(0, 2)) + 1e-6
-        union = (pred ** 2 + gt).sum(dim=(0, 2)) + 2e-6
+        intersection = (pred * gt).sum(dim=(0, 2))
+        union = (pred ** 2 + gt).sum(dim=(0, 2))
+        group = sync_group()
+        if group is not None:
+            intersection, union = all_reduce_sum(
+                torch.stack([intersection, union]), group).unbind(0)
+        intersection = intersection + 1e-6
+        union = union + 2e-6
         return 1.0 - torch.mean(2.0 * intersection / union)
     return fn
 

@@ -25,7 +25,10 @@ variance ``E[y^2] - E[y]^2`` of the conv output y, both from fp32 sums:
 the kernel's stats epilogue for a fused conv, plain sums otherwise.  It
 updates ``running_mean``/``running_var`` with momentum 0.1 (flax's 0.9),
 the var UNBIASED (x n/(n-1)) as torch's BatchNorm3d does, and counts
-``num_batches_tracked``.
+``num_batches_tracked``.  Under synced data parallelism
+(``parallel.comm.synced``) the sums and the count are the global batch's:
+the sums are all-reduced over the data group, differentiably, before the
+mean and var are formed, in every stage alike.
 
 Exact shape bucketing (eval only, ``blocks.py:168-236,700-725,1135-1215``):
 ``forward`` takes the true extents ``ext`` = (y, x, z) of its input inside
@@ -61,7 +64,9 @@ probability 1 - p and scaling the kept ones by 1 / (1 - p), as flax's
 ``nn.Dropout``; in eval it is the identity.  The masks come from the
 ``torch.Generator`` that :func:`dropout_generator` installs (the train step
 does, from its ``generator`` argument); a training forward through a
-dropout block without one raises.  A stage with dropout > 0 leaves the
+dropout block without one raises.  Under synced data parallelism the
+mask is drawn for the global batch and each rank keeps its rows, as one
+process draws it for the whole batch.  A stage with dropout > 0 leaves the
 kernels in eval and in training, as the JAX package takes it off its fused
 lowering (``fused_stage_bs``, ``blocks.py:262``): its convs run the plain
 version, and the pool after it the first-max backward (``reduce_window``
@@ -96,6 +101,8 @@ from multimodal_fusion_fpn_torch.ops.fused_conv import (affine_relu,
                                                         conv3d_cl,
                                                         fused_conv)
 from multimodal_fusion_fpn_torch.ops.upsample import upsample_nearest
+from multimodal_fusion_fpn_torch.parallel.comm import (all_reduce_sum,
+                                                      sync_group)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1     # torch's convention; flax's 0.9 keeps the running value
@@ -203,6 +210,14 @@ class BNFold(nn.Module):
         else:
             s1, s2 = channel_sums(y) if sums is None else sums
             n = y.numel() // y.shape[-1]
+            group = sync_group()
+            if group is not None:
+                # synced data parallelism: the global batch's sums; the
+                # shards are equal (parallel.mesh.shard_batch), so the
+                # global count is n times the group's size
+                s1, s2 = all_reduce_sum(torch.stack([s1, s2]),
+                                        group).unbind(0)
+                n *= group.size
             mean = s1 / n
             var = s2 / n - mean * mean
             with torch.no_grad():
@@ -252,7 +267,16 @@ def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
             "train step, or run the forward inside "
             "blocks.dropout_generator(...)")
     keep_prob = 1.0 - p
-    keep = dropout_mask(tuple(x.shape), keep_prob, _DROPOUT_GENERATORS[-1])
+    group = sync_group()
+    if group is None:
+        keep = dropout_mask(tuple(x.shape), keep_prob,
+                            _DROPOUT_GENERATORS[-1])
+    else:
+        # synced data parallelism: the global batch's mask, this rank's rows
+        b = x.shape[0]
+        keep = dropout_mask((b * group.size, *x.shape[1:]), keep_prob,
+                            _DROPOUT_GENERATORS[-1])[
+                                group.rank * b:(group.rank + 1) * b]
     return torch.where(keep.to(x.device), x / keep_prob, torch.zeros(
         (), dtype=x.dtype, device=x.device))
 

@@ -6,10 +6,13 @@ the root of the checkout; the hash covers the source and the flags, so a
 changed source rebuilds and an unchanged one loads the cached library.
 Nothing is compiled when a module is imported: the first wrapper call that
 needs a library builds it, or :func:`build` builds several at once, one
-``nvcc`` process per source, all started together.
+``nvcc`` process per source, all started together.  A build holds a lock
+on ``build/kernels/.lock``, so processes that start together (the ranks of
+a data-parallel run) build each library once: the others wait and load it.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -51,10 +54,19 @@ def library_path(name: str) -> str:
 def build(names: Iterable[str]) -> None:
     """Compile every named source whose library is missing, in parallel.
     Raises with nvcc's output if any compile fails."""
+    names = list(names)
+    if all(os.path.exists(library_path(n)) for n in names):
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_missing(names)
+
+
+def _build_missing(names) -> None:
     todo = [n for n in names if not os.path.exists(library_path(n))]
     if not todo:
         return
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for name in todo:

@@ -20,15 +20,31 @@ BatchNorm stats, optimizer, step, the early-stopping ledger).  The run
 writes the top-5 ``epoch=*.ckpt``, ``curves.json``, ``curves.svg``,
 ``images/`` and, once complete, ``last.ckpt`` with the optimizer; then it
 removes ``resume.ckpt``.  ``--precision bf16`` computes in bf16 with fp32
-weights.  ``--mesh`` raises ``NotImplementedError``: several cards are
-not ported yet (ROADMAP M10), and the run never spreads over the visible
-cards by itself.
+weights.
+
+Data parallelism (``train.py:72-80``): with ``--mesh data=N``, or without
+``--mesh`` when torchrun's ``WORLD_SIZE`` is above 1 (then ``data=WORLD_SIZE``),
+the run is one rank of N processes, each on its rows of every batch
+(``parallel``):
+
+    torchrun --nproc-per-node N -m multimodal_fusion_fpn_torch.train \
+        --mesh data=N [--bn-sync] ...
+
+``--bn-sync`` normalises with the global batch's statistics; without it
+each rank normalises with its own (the original project's per-replica
+BatchNorm).  The backend is the initialised process group's, else nccl on
+the card (one card per rank) and gloo on the CPU (``parallel.mesh.
+init_mesh``).  Rank r computes on ``cuda:LOCAL_RANK``.  Rank 0 alone writes
+the run directory; the standard output of the other ranks is discarded.
+``space=M`` with M > 1 raises ``NotImplementedError`` (the space axis is
+not ported yet); the run never spreads over the visible cards by itself.
 
 :func:`run` trains on the card (``device="cuda"``) through the kernels, or
 on the CPU when the caller passes ``device="cpu"``; ``kernels=False`` runs
 the plain versions on the card.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -36,14 +52,15 @@ import sys
 import time
 from os.path import join
 from pathlib import Path
-
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_fusion_fpn_torch import paths as path_utils
 from multimodal_fusion_fpn_torch.config import parse_config, pretty_print
 from multimodal_fusion_fpn_torch.data.loader import DataLoader
 from multimodal_fusion_fpn_torch.models.zoo import build_model
+from multimodal_fusion_fpn_torch.parallel.mesh import init_mesh, shard_state
 from multimodal_fusion_fpn_torch.train.checkpoints import (
     load_checkpoint, load_training_state, save_checkpoint)
 from multimodal_fusion_fpn_torch.train.configs import data_config_factory
@@ -55,16 +72,14 @@ from multimodal_fusion_fpn_torch.weights import init_state_dict
 
 
 def main(config, data_config, model_path, training_file_list,
-         validation_file_list, device="cuda", kernels=True, t_start=None):
-    """One split's run (``train.py:39-153``); returns its info (see
-    :func:`run`), or None under ``--exec-test``."""
+         validation_file_list, device="cuda", kernels=True, t_start=None,
+         mesh=None):
+    """One split's run (``train.py:39-153``), on this rank of ``mesh``
+    when there is one; returns its info (see :func:`run`), or None under
+    ``--exec-test``."""
     t_start = time.perf_counter() if t_start is None else t_start
     print(model_path)
     print("torch", torch.__version__, "device", device)
-    if config.mesh:
-        raise NotImplementedError(
-            "--mesh: training over several cards (data and space "
-            "parallelism) is not ported yet (ROADMAP M10)")
 
     print("===> Building model")
     dtype = torch.bfloat16 if config.precision == "bf16" else torch.float32
@@ -113,7 +128,8 @@ def main(config, data_config, model_path, training_file_list,
         monitor=data_config.monitor,
         monitor_mode=data_config.monitor_mode,
         early_stopping=config.early_stopping,
-        seed=config.seed, device=device, kernels=kernels)
+        seed=config.seed, device=device, kernels=kernels,
+        mesh=mesh, bn_sync=config.bn_sync)
 
     start_epoch, early_state = 0, None
     resume_path = join(model_path, "resume.ckpt")
@@ -133,6 +149,8 @@ def main(config, data_config, model_path, training_file_list,
         early_state = {"best": None if np.isnan(best) else best,
                        "patience_left": None if pl < 0 else pl}
         print(f"Resumed at epoch {start_epoch} (step {state.step})")
+    if mesh is not None:
+        shard_state(model, optimizer, mesh)
 
     print("===> Begin training")
     t_fit = time.perf_counter()
@@ -142,14 +160,14 @@ def main(config, data_config, model_path, training_file_list,
 
     if trainer.interrupted:
         print("Training interrupted")
-    else:
+    elif mesh is None or mesh.rank == 0:
         print("===> Saving last model")
         save_checkpoint(join(model_path, "last.ckpt"), model.state_dict(),
                         optimizer=optimizer.state_dict(),
                         step=int(state.step))
         if Path(resume_path).exists():
             os.remove(resume_path)
-    if device != "cpu":
+    if torch.device(device).type != "cpu":
         torch.cuda.synchronize(device)
     return {"model_path": model_path, "interrupted": trainer.interrupted,
             "seconds": time.perf_counter() - t_start, "fit": t_fit,
@@ -159,18 +177,21 @@ def main(config, data_config, model_path, training_file_list,
 
 
 def train_with_split(config, data_config, split, idx, split_path,
-                     device="cuda", kernels=True, t_start=None):
+                     device="cuda", kernels=True, t_start=None, mesh=None):
     model_path = path_utils.get_model_path(config, split_path, idx)
-    Path(model_path).mkdir(exist_ok=True, parents=True)
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        Path(model_path).mkdir(exist_ok=True, parents=True)
     print(model_path)
 
     if Path(join(model_path, "last.ckpt")).exists():
         print("Model already trained. Skipping.")
         sys.exit(0)
 
-    if os.path.exists(config.file_to_copy):
-        shutil.copy2(config.file_to_copy, model_path)
-    Path(join(model_path, "images")).mkdir(exist_ok=True, parents=True)
+    if writer:
+        if os.path.exists(config.file_to_copy):
+            shutil.copy2(config.file_to_copy, model_path)
+        Path(join(model_path, "images")).mkdir(exist_ok=True, parents=True)
 
     train_ids, val_ids = split["train"], split["val"]
     if config.data_ratio < 1.0:
@@ -181,7 +202,7 @@ def train_with_split(config, data_config, split, idx, split_path,
     print("Number of training samples:", len(train_ids))
     print("Number of validation samples:", len(val_ids))
     return main(config, data_config, model_path, train_ids, val_ids,
-                device=device, kernels=kernels, t_start=t_start)
+                device=device, kernels=kernels, t_start=t_start, mesh=mesh)
 
 
 def run(argv=None, device="cuda", kernels: bool = True):
@@ -191,9 +212,30 @@ def run(argv=None, device="cuda", kernels: bool = True):
     "timing" (the trainer's split of them: "load", "step", "debug", "val",
     "save"), "images" and "steps" trained, "eval_forwards" (validation and
     debug strips), "losses" (each step's), "step"}; None under
-    ``--exec-test``."""
-    t_start = time.perf_counter()
-    config = parse_config(argv)
+    ``--exec-test``.  Under a mesh every rank returns its info, and ranks
+    other than 0 print nothing; a process group this call made is torn
+    down at its end."""
+    owned = not dist.is_initialized()
+    try:
+        t_start = time.perf_counter()
+        config = parse_config(argv)
+        mesh = None
+        if config.mesh or int(os.environ.get("WORLD_SIZE", 1)) > 1:
+            mesh = init_mesh(config.mesh, device=device)
+            device = mesh.device
+        with contextlib.ExitStack() as stack:
+            if mesh is not None and mesh.rank != 0:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _run(config, mesh, device, kernels, t_start)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(config, mesh, device, kernels, t_start):
+    if mesh is not None:
+        print("Process mesh:", mesh.axes, "backend", mesh.data.backend)
     print(pretty_print(config))
     np.random.seed(config.seed)
 
@@ -218,7 +260,7 @@ def run(argv=None, device="cuda", kernels: bool = True):
         print("Only one split, ignoring split indices."
               " Regular training setting.")
         info = train_with_split(config, data_config, splits, None,
-                                split_path, device, kernels, t_start)
+                                split_path, device, kernels, t_start, mesh)
     elif isinstance(splits, list):
         print(f"Multiple splits ({len(splits)}), using split indices."
               " Training in a cross-validation setting.")
@@ -229,7 +271,7 @@ def run(argv=None, device="cuda", kernels: bool = True):
                                                         len(splits) - 1))
             info = train_with_split(config, data_config, split, idx,
                                     split_path, device, kernels,
-                                    time.perf_counter())
+                                    time.perf_counter(), mesh)
     return info
 
 

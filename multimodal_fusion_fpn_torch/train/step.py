@@ -36,6 +36,57 @@ def model_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
             for k in MODEL_KEYS if k in batch}
 
 
+def train_metrics(out: Dict, b: Dict, compute: bool = True) -> Dict:
+    """The per-sample Dice and the scalar BCE of a train forward."""
+    if not compute or "mask" not in b:
+        return {}
+    pred = out["prediction"].detach()
+    return {"Dice": dice_per_sample(pred, b["mask"]),
+            "BCE": bce_scalar(pred, b["mask"])}
+
+
+def run_micro_batches(model: nn.Module, criterion: Callable, b: Dict,
+                      kernels: bool, accum_steps: int,
+                      metrics_from: Callable):
+    """Forward and backward of ``b`` (a leading micro-batch axis when
+    ``accum_steps`` > 1), the gradients averaged over the micro-batches
+    into ``.grad``: (loss, parts, metrics), detached, the loss and its
+    parts averaged, per-sample metrics (``metrics_from(out, micro_batch)``)
+    concatenated and scalar ones averaged."""
+
+    def forward_backward(mb, scale):
+        out = model(mb, kernels=kernels)
+        loss, parts = criterion(mb, out)
+        (loss * scale if scale != 1 else loss).backward()
+        return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+                metrics_from(out, mb))
+
+    if accum_steps == 1:
+        return forward_backward(b, 1)
+    loss, parts, metrics = 0.0, {}, {}
+    for i in range(accum_steps):
+        mb = {k: v[i] for k, v in b.items()}
+        li, pi, mi = forward_backward(mb, 1.0 / accum_steps)
+        loss = loss + li
+        parts = {k: parts.get(k, 0.0) + v for k, v in pi.items()}
+        for k, v in mi.items():
+            metrics[k] = (v if k not in metrics else
+                          torch.cat([metrics[k], v]) if v.dim()
+                          else metrics[k] + v)
+    loss = loss / accum_steps
+    parts = {k: v / accum_steps for k, v in parts.items()}
+    metrics = {k: v if v.dim() else v / accum_steps
+               for k, v in metrics.items()}
+    return loss, parts, metrics
+
+
+def check_state(state: TrainState, model: nn.Module,
+                optimizer: torch.optim.Optimizer) -> None:
+    if state.model is not model or state.optimizer is not optimizer:
+        raise ValueError("state holds another model or optimizer than "
+                         "the step was made for")
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     criterion: Callable, compute_train_metrics: bool = True,
                     accum_steps: int = 1, device="cuda") -> Callable:
@@ -47,53 +98,21 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     needs."""
 
     def metrics_from(out, b):
-        if not compute_train_metrics or "mask" not in b:
-            return {}
-        pred = out["prediction"].detach()
-        return {"Dice": dice_per_sample(pred, b["mask"]),
-                "BCE": bce_scalar(pred, b["mask"])}
-
-    def forward_backward(b, kernels, scale):
-        out = model(b, kernels=kernels)
-        loss, parts = criterion(b, out)
-        (loss * scale if scale != 1 else loss).backward()
-        return (loss.detach(), {k: v.detach() for k, v in parts.items()},
-                metrics_from(out, b))
+        return train_metrics(out, b, compute_train_metrics)
 
     def step(state: TrainState, batch, kernels: bool = True,
              generator: Optional[torch.Generator] = None):
-        if state.model is not model or state.optimizer is not optimizer:
-            raise ValueError("state holds another model or optimizer than "
-                             "the step was made for")
+        check_state(state, model, optimizer)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         b = model_batch(batch, device)
         with (dropout_generator(generator) if generator is not None
               else contextlib.nullcontext()):
-            loss, parts, metrics = run(b, kernels)
+            loss, parts, metrics = run_micro_batches(
+                model, criterion, b, kernels, accum_steps, metrics_from)
         optimizer.step()
         state.step += 1
         return {"loss": loss, "parts": parts, "metrics": metrics}
-
-    def run(b, kernels):
-        if accum_steps == 1:
-            loss, parts, metrics = forward_backward(b, kernels, 1)
-        else:
-            loss, parts, metrics = 0.0, {}, {}
-            for i in range(accum_steps):
-                mb = {k: v[i] for k, v in b.items()}
-                li, pi, mi = forward_backward(mb, kernels, 1.0 / accum_steps)
-                loss = loss + li
-                parts = {k: parts.get(k, 0.0) + v for k, v in pi.items()}
-                for k, v in mi.items():
-                    metrics[k] = (v if k not in metrics else
-                                  torch.cat([metrics[k], v]) if v.dim()
-                                  else metrics[k] + v)
-            loss = loss / accum_steps
-            parts = {k: v / accum_steps for k, v in parts.items()}
-            metrics = {k: v if v.dim() else v / accum_steps
-                       for k, v in metrics.items()}
-        return loss, parts, metrics
 
     return step
 

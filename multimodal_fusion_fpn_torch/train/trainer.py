@@ -25,6 +25,17 @@ while the host keeps its numpy copy for the metrics and the strips.
 ("load"), the train steps up to the epoch's last fetch ("step"), the debug
 strips ("debug"), validation ("val") and the checkpoints and curves
 ("save"); ``images`` counts the images trained on.
+
+Data parallelism (``mesh``, ``bn_sync``: ``trainer.py:42,58-66``): every
+rank loads the same global batch from the same seeded loader and keeps its
+rows of each micro-batch (``parallel.mesh.shard_batch``; stacking sharded
+micro-batches is sharding the stacked window on its axis 1), and the steps,
+the epoch-tail ones included, are ``parallel.step.make_dp_train_step``'s.
+Rank 0 alone validates (with the replicated state, as the JAX trainer
+does) and writes the checkpoints, ``resume.ckpt``, the curves and the
+strips; it broadcasts the validation results, so the top-k ledger and
+early stopping agree on every rank.  (The entry point discards the
+standard output of the other ranks.)
 """
 
 import os
@@ -35,6 +46,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from multimodal_fusion_fpn_torch.parallel.comm import broadcast_
+from multimodal_fusion_fpn_torch.parallel.mesh import shard_batch
+from multimodal_fusion_fpn_torch.parallel.step import make_dp_train_step
 from multimodal_fusion_fpn_torch.train.checkpoints import (TopKCheckpointer,
                                                            save_checkpoint)
 from multimodal_fusion_fpn_torch.train.state import TrainState
@@ -64,7 +78,8 @@ class Trainer:
                  early_stopping: Optional[int] = None,
                  seed: int = 1234,
                  save_debug_images: bool = True,
-                 device="cuda", kernels: bool = True):
+                 device="cuda", kernels: bool = True,
+                 mesh=None, bn_sync: bool = True):
         self.model = model
         self.optimizer = optimizer
         self.criterion = criterion
@@ -81,14 +96,17 @@ class Trainer:
         self.save_debug_images = save_debug_images
         self.device = torch.device(device)
         self.kernels = kernels
+        self.mesh = mesh
+        self.bn_sync = bn_sync
+        self.rank0 = mesh is None or mesh.rank == 0
 
         self.train_step = self._make_step(self.vbs)
         # epoch-tail steps (fewer micro-batches), made when first needed
         self._tail_steps = {self.vbs: self.train_step}
         self.eval_step = make_eval_step(model, self.device)
-        self.checkpointer = TopKCheckpointer(
+        self.checkpointer = (TopKCheckpointer(
             model_path, monitor=monitor, mode=monitor_mode,
-            save_top_k=save_top_k)
+            save_top_k=save_top_k) if self.rank0 else None)
         self.curves = CurvePlotter(model_path,
                                    list(self.metrics_train.keys()),
                                    list(self.metrics_val.keys()))
@@ -99,7 +117,7 @@ class Trainer:
         self.steps = 0
         self.eval_forwards = 0
         self.losses = []
-        if save_debug_images:
+        if save_debug_images and self.rank0:
             os.makedirs(join(model_path, "images"), exist_ok=True)
 
     # ------------------------------------------------------------------
@@ -109,6 +127,11 @@ class Trainer:
         return now
 
     def _make_step(self, accum_steps: int):
+        if self.mesh is not None:
+            return make_dp_train_step(
+                self.model, self.optimizer, self.criterion, self.mesh,
+                bn_sync=self.bn_sync, accum_steps=accum_steps,
+                device=self.device)
         return make_train_step(self.model, self.optimizer, self.criterion,
                                accum_steps=accum_steps, device=self.device)
 
@@ -117,10 +140,16 @@ class Trainer:
             self._tail_steps[n] = self._make_step(n)
         return self._tail_steps[n]
 
-    def _transfer(self, batch):
-        """(the host batch, its model keys on the device)."""
-        return batch, tree_to_device({k: batch[k] for k in MODEL_KEYS
-                                      if k in batch}, self.device)
+    def _transfer(self, batch, shard: bool = False):
+        """(the host batch, its model keys on the device: with ``shard``,
+        this rank's rows under a mesh)."""
+        mb = {k: batch[k] for k in MODEL_KEYS if k in batch}
+        if shard and self.mesh is not None:
+            mb = shard_batch(mb, self.mesh)
+        return batch, tree_to_device(mb, self.device)
+
+    def _transfer_shard(self, batch):
+        return self._transfer(batch, shard=True)
 
     def _run_step(self, state, payload, epoch, step_in_epoch, accum_len):
         gen = torch.Generator(device=self.device).manual_seed(
@@ -140,6 +169,8 @@ class Trainer:
                 self.metrics_train[k].extend_values(vals)
 
     def _debug_strip(self, host_batch) -> None:
+        if not self.rank0:
+            return
         try:
             out = self.eval_step(host_batch, kernels=self.kernels)
             self.eval_forwards += 1
@@ -171,9 +202,10 @@ class Trainer:
 
         t = time.perf_counter()
         for host, mb in device_prefetch(iter(loader),
-                                        transfer=self._transfer):
+                                        transfer=self._transfer_shard):
             t = self._tick("load", t)
-            self.images += int(next(iter(mb.values())).shape[0])
+            self.images += len(next(host[k] for k in MODEL_KEYS
+                                    if k in host))
             if self.vbs > 1:
                 pending.append((mb, host))
                 if len(pending) < self.vbs:
@@ -203,6 +235,18 @@ class Trainer:
         self._tick("step", t)
 
     def _val_epoch(self, state: TrainState, loader) -> Dict[str, float]:
+        """The validation results: rank 0's, broadcast under a mesh."""
+        results = self._validate(loader) if self.rank0 else None
+        if self.mesh is not None:
+            keys = list(self.metrics_val)
+            vals = torch.tensor([results[k] for k in keys] if self.rank0
+                                else [0.0] * len(keys), dtype=torch.float64,
+                                device=self.device)
+            broadcast_([vals], self.mesh.data)
+            results = dict(zip(keys, vals.tolist()))
+        return results
+
+    def _validate(self, loader) -> Dict[str, float]:
         for metric in self.metrics_val.values():
             metric.reset()
         for host, mb in device_prefetch(iter(loader),
@@ -228,7 +272,7 @@ class Trainer:
         if early_state is not None:
             best = early_state.get("best")
             patience_left = early_state.get("patience_left", patience_left)
-        if start_epoch > 0:
+        if start_epoch > 0 and self.rank0:
             self.checkpointer.restore()
             self.curves.load(upto=start_epoch)
         try:
@@ -246,7 +290,8 @@ class Trainer:
                 t = self._tick("val", t)
                 for k, v in val_results.items():
                     self.curves.append(f"{k} (val)", v)
-                self.curves.save()
+                if self.rank0:
+                    self.curves.save()
 
                 # metametrics publish the monitor (the original project's
                 # only path to 'Dice'); else the raw validation results
@@ -255,10 +300,11 @@ class Trainer:
                 monitor_value = meta_results.get(
                     self.monitor, val_results.get(self.monitor, np.nan))
                 print(f"[epoch {epoch}] train={train_results} "
-                      f"val={val_results}")
+                            f"val={val_results}")
 
-                self.checkpointer.update(epoch, monitor_value,
-                                         self.model.state_dict())
+                if self.rank0:
+                    self.checkpointer.update(epoch, monitor_value,
+                                             self.model.state_dict())
 
                 if self.early_stopping is not None:
                     improved = (best is None
@@ -284,7 +330,9 @@ class Trainer:
     def _save_resume(self, state: TrainState, epoch: int, best,
                      patience_left) -> None:
         """The epoch-boundary ``resume.ckpt`` (``--resume`` reads it; the
-        entry point removes it once the run completes)."""
+        entry point removes it once the run completes); rank 0's."""
+        if not self.rank0:
+            return
         save_checkpoint(
             join(self.model_path, "resume.ckpt"), self.model.state_dict(),
             optimizer=self.optimizer.state_dict(), step=int(state.step),

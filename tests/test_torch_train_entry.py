@@ -159,14 +159,17 @@ def _compiled_at_level_1(make):
 def _template_state(template):
     """A stand-in for the JAX entry point's ``create_train_state``: zeros
     of the name table's trees (``--model-weights`` replaces them) and of
-    the optimizer's state, with no compiled init."""
+    the optimizer's state, with no compiled init.  The optimizer's zeros
+    are float64, the type the float64 run's momentum takes at its first
+    step, so that its train step compiles once, not twice."""
     def make(model, tx, rng, example, params=None, batch_stats=None):
-        zeros = lambda t: jax.tree.map(  # noqa: E731
-            lambda s: np.zeros(s.shape, s.dtype), t)
+        zeros = lambda t, dt=None: jax.tree.map(  # noqa: E731
+            lambda s: np.zeros(s.shape, dt or s.dtype), t)
         params = zeros(template["params"])
         return JState(step=np.int32(0), params=params,
                       batch_stats=zeros(template["batch_stats"]),
-                      opt_state=zeros(jax.eval_shape(tx.init, params)))
+                      opt_state=zeros(jax.eval_shape(tx.init, params),
+                                      np.float64))
     return make
 
 
@@ -198,7 +201,8 @@ def both_trained(run_dirs, tmp_path_factory):
                    _template_state(template))
         mp.setattr(jtrain_entry, "build_model",
                    lambda config, dtype=None: jbuild(config,
-                                                     dtype=jnp.float64))
+                                                     dtype=jnp.float64,
+                                                     remat=False))
         mp.setattr(ttrain_main, "build_model",
                    lambda config, dtype=None, device="cpu": tbuild(
                        config, dtype=torch.float64, device=device).double())
@@ -285,9 +289,13 @@ def test_exec_test_builds_and_returns(run_dirs, tmp_path, monkeypatch):
 
 
 def test_mesh_is_refused(run_dirs, tmp_path):
-    with _cwd(tmp_path), pytest.raises(NotImplementedError, match="M10"):
-        ttrain.run(_argv(run_dirs, extra=["--mesh", "data=1"]),
+    """A mesh with a space axis is refused (the data axis runs:
+    ``tests/test_torch_parallel.py``), and nothing is written."""
+    with _cwd(tmp_path), pytest.raises(NotImplementedError,
+                                       match="space axis"):
+        ttrain.run(_argv(run_dirs, extra=["--mesh", "data=1,space=2"]),
                    device="cpu")
+    assert not _files(tmp_path)
 
 
 def test_resume_through_the_entry_point_with_dropout(run_dirs, tmp_path):
