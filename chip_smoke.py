@@ -282,14 +282,40 @@ Phases, each of which fails the run on any error:
    per-forward counts (rank 1 validates nothing), rank 0's artifacts as in
    phase 12, rank 1 writes no file; the ms per step is printed, labelled
    as gloo on a shared card, not a speed of data parallelism.
-14. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+14. The architecture ini's toggles and the width rule (``arch_phase``),
+   at phase 3's crop shapes.  (a) FPNHybridFusion with ``is_deconv``
+   (BatchNorm kept), phase 3's seeded members: the 5-member ensemble at
+   bf16 B=4 (timed, images/s as in phase 3) and fp32 B=1, kernel path
+   against ``kernels=False`` with phase 3's bounds, the launches exactly
+   MEMBERS times phase 2's per-member counts (the transposed conv runs in
+   the decoder, which takes no kernel); one bf16 B=4 train step against
+   ``kernels=False`` (phase 5's loss and running-stat bounds, SGD's step
+   from each path's gradients, finite gradients) with phase 5's launches
+   exactly.  (b) The same without BatchNorm, with and without deconv: the
+   only kernel launched is K5f (NO_BN_PER_FORWARD: 8 pools per forward, the
+   first-max backward plain), the ensemble and the train step checked as
+   in (a), one member fp32 on a small input against the CPU.  (c) The
+   hybrid with BatchNorm at widths the kernels take only in part
+   (ARCH_WIDTHS: ``tiny_spec`` and (24, ..., 384)): the bf16 B=4 ensemble
+   as in (a), its launches exactly MEMBERS times ARCH_PER_MEMBER, and the
+   train step as in (a), each kernel's launches printed; then a
+   planted control: every conv of a fused stage with ci >= 8 forced onto
+   the fused conv (the predicate ``blocks.fused_conv_takes`` replaced by
+   one that takes everything) must raise in the wrapper's check.
+   (d) ``train.run`` with ARCH_INI (both toggles, the ini widths), bf16,
+   one epoch of 4 steps over ARCH_VISITS visits: finite losses, K5f's
+   launches alone (8 per step and per eval forward), ``last.ckpt``; then
+   five copies of that ``last.ckpt`` served by ``validate_ensemble.run``
+   (bucketed, bf16): finite predictions, K5f alone, a second run skips.
+15. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8, and beside them the entry point's
    bf16 run of phase 10, ``launches_entry_point``, phase 11's bf16
    kernel runs, ``launches_vrc`` (both paths) and ``launches_vrc_paths``
    (each), phase 12's bf16 run, ``launches_train_entry``, and each rank's
-   run of phase 13 (c), ``launches_data_parallel``; max-abs-err
+   run of phase 13 (c), ``launches_data_parallel``, and each run of
+   phase 14, ``launches_arch``; max-abs-err
    of its fp32 comparisons;
    per-step times summed over the bf16 B=4 calls (for the bucketed paths
    one bucketed ensemble step of 5 members, where the launches count the
@@ -525,6 +551,31 @@ DP_VISITS = 4
 DP_MULTIPLIER = 2
 DP_EPOCHS = 2
 DP_TIMEOUT = 300         # s for the spawned ranks; then they are stopped
+# phase 14: the architecture ini's toggles and the width rule.  The widths
+# of (c): tiny_spec (tests/conftest.py) and one more ini's; the train run
+# of (d): ARCH_VISITS training visits of phase 10's shape, ARCH_MULTIPLIER
+# crops of phase 5's shapes per visit, one epoch at batch 4 (4 steps)
+ARCH_WIDTHS = {"tiny": (2, 4, 8, 16, 32), "w24": (24, 48, 96, 192, 384)}
+# their launches per member forward: the convs the kernels take (the CPU
+# routing test, tests/test_torch_arch.py::test_width_rule, applies the
+# same predicates)
+ARCH_PER_MEMBER = {"tiny": {"fused_conv": 21, "fused_conv_ky3": 4,
+                            "max_pool3d_cl": 8},
+                   "w24": {"fused_conv": 13, "fused_conv_ky3": 2,
+                           "max_pool3d_cl": 8}}
+ARCH_VISITS, ARCH_MULTIPLIER = 4, 4
+ARCH_INI = """[architecture]
+architecture-name=ModifiedUnet3D
+is-deconv=true
+channels=16,32,64,128,256
+dropout=0.0,0.0,0.0,0.0,0.0,0.0,0.0,0.0,0.0
+is-batchnorm=false
+"""
+# the only kernel a model without BatchNorm launches, per forward, eval or
+# train: its pools (K5f; the first-max backward is plain, as XLA's is in
+# the JAX package)
+NO_BN_PER_FORWARD = {"max_pool3d_cl": 8}
+
 
 
 def emit(obj):
@@ -1708,11 +1759,11 @@ class Trainer:
     """One model + optimizer + train step that can restart from a state
     dict, so two paths start from the same weights."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, spec=None):
         from multimodal_fusion_fpn_torch.losses import (Mix, bce_loss,
                                                          dice_loss_joint)
         from multimodal_fusion_fpn_torch.models.zoo import build_model
-        self.model = build_model(cfg, dtype=dtype, device=device)
+        self.model = build_model(cfg, spec=spec, dtype=dtype, device=device)
         self.crit = Mix({"Dice Loss": dice_loss_joint(),
                          "BCE loss": bce_loss()})
         self.device = device
@@ -2036,19 +2087,20 @@ def zoo_batch(name, B, seed, yzx=OCT_YZX, slo_hw=SLO_HW):
     return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
 
 
-def zoo_launches_ok(name, launches, n):
-    """Every kernel of ``name``'s eval path launched ``n`` times its
-    per-member count, every other kernel not at all."""
-    want = ZOO_PER_MEMBER[name]
+def zoo_launches_ok(launches, want, n):
+    """Every kernel of ``want`` (per-member counts) launched ``n`` times
+    its count, every other kernel not at all."""
     return all(launches[k] == n * want.get(k, 0) for k in launches)
 
 
-def zoo_eval(name, tag, dt, B, model, sds, card, timed=False):
+def zoo_eval(name, tag, dt, B, model, sds, card, timed=False,
+             per_member=None):
     """Phase 9 (a) and (b): the ensemble of ``sds`` (one member or
     MEMBERS) on the kernel path against ``kernels=False`` at the crop
     shapes, with phase 3's tolerances, the launches counted in a run of
-    the kernel path alone, and with ``timed`` the images/s of both paths.
-    (ok, record)."""
+    the kernel path alone (each kernel ``per_member``'s count per member,
+    ZOO_PER_MEMBER[name] by default), and with ``timed`` the images/s of
+    both paths.  (ok, record)."""
     import torch
     from multimodal_fusion_fpn_torch import ops
     from multimodal_fusion_fpn_torch.eval.ensemble import \
@@ -2068,7 +2120,9 @@ def zoo_eval(name, tag, dt, B, model, sds, card, timed=False):
     shape = ((B, ZOO_CLASSES[name]) if name in ZOO_CLASSES
              else (B, 1, OCT_YZX[0], 1, OCT_YZX[2]))
     ok &= tuple(pred.shape) == shape
-    counted = zoo_launches_ok(name, launches, len(sds))
+    counted = zoo_launches_ok(
+        launches, ZOO_PER_MEMBER[name] if per_member is None else per_member,
+        len(sds))
     rec = {"phase": "zoo_e2e", "model": name, "config": tag,
            "members": len(sds), "batch": B,
            "prediction_shape": list(pred.shape), "ok": ok,
@@ -2081,19 +2135,20 @@ def zoo_eval(name, tag, dt, B, model, sds, card, timed=False):
     return ok and counted, rec
 
 
-def zoo_small_vs_cpu(name, sd):
+def zoo_small_vs_cpu(name, sd, spec=None):
     """One member on the small input, fp32, the card against the CPU's
-    plain path (phase 3's check)."""
+    plain path (phase 3's check); ``spec``: the architecture (the ini's
+    by default)."""
     import torch
     from multimodal_fusion_fpn_torch.models.zoo import build_model
     cfg = zoo_cfg(name)
     batch = {k: v.cpu() for k, v in
              zoo_batch(name, 1, 2, (8, 64, 32), (80, 32)).items()}
     with torch.inference_mode():
-        card = build_model(cfg)
+        card = build_model(cfg, spec=spec)
         card.load_state_dict(sd)
         got = card({k: v.cuda() for k, v in batch.items()})["prediction"]
-        cpu = build_model(cfg, device="cpu")
+        cpu = build_model(cfg, spec=spec, device="cpu")
         cpu.load_state_dict(sd)
         want = cpu(batch)["prediction"]
     return compare(got.cpu(), want, torch.float32)
@@ -3521,6 +3576,185 @@ def dp_phase(card, cfg, sd, per_step_b4, per_forward):
     return failures, got
 
 
+def arch_spec(channels=(16, 32, 64, 128, 256), bn=True, deconv=False):
+    from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
+    return ArchSpec(tuple(channels), is_batchnorm=bn, is_deconv=deconv)
+
+
+def arch_train(cfg, spec, dt, B, sd):
+    """One train step on the kernel path against ``kernels=False`` from the
+    same weights (phase 5's forward check: the loss, the running stats) and
+    SGD's step from each path's own gradients: (ok, record)."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    tr = Trainer(cfg, dt, "cuda", spec)
+    batch = make_batch(B, 4)
+    results = {}
+    for kern in (False, True):
+        tr.reset(sd)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        aux = tr.step(batch, kernels=kern)
+        torch.cuda.synchronize()
+        if kern:
+            launches = ops.kernel_launches()
+        results[kern] = (aux, *tr.snapshot())
+    ok_f, cmp = compare_forward(results[True], results[False], dt)
+    ok_u = True
+    for kern, label in ((True, "kernels"), (False, "plain")):
+        o, cmp[f"sgd_update_worst_rel_err_{label}"] = check_sgd_update(
+            sd, {k: v.cpu() for k, v in results[kern][1].items()},
+            {k: v.cpu() for k, v in results[kern][2].items()})
+        ok_u &= o
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in results[True][1].values())
+    ok = ok_f and ok_u and finite
+    return ok, {"batch": B, "ok": ok, "forward_ok": ok_f, "sgd_ok": ok_u,
+                "grads_finite": finite, "launches": launches, **cmp}
+
+
+def arch_phase(card, configs, per_forward, per_step):
+    """Phase 14, the architecture ini's toggles and the width rule (module
+    note): the failures and each run's launches.  ``per_forward`` /
+    ``per_step``: the launches of one member's bf16 eval forward (phase 2)
+    and of one bf16 B=4 train step (phase 5) at the ini widths."""
+    import os
+    import tempfile
+    import torch
+    from multimodal_fusion_fpn_torch.models import blocks
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    t0 = time.time()
+    failures, launches = [], {}
+    cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
+                          fusion_modality="slo", number_of_outputs=1)
+
+    def check(ok, rec, what):
+        emit(dict(rec, ok=bool(ok), seconds=time.time() - t0))
+        if not ok:
+            failures.append(f"arch: {what}")
+
+    # (a), (b): the toggles at the ini widths
+    variants = {"deconv": arch_spec(deconv=True),
+                "no_bn": arch_spec(bn=False),
+                "no_bn_deconv": arch_spec(bn=False, deconv=True)}
+    for name, spec in variants.items():
+        models = {tag: build_model(cfg, spec=spec, dtype=dt)
+                  for tag, dt, _ in configs}
+        sds = member_state_dicts(models["fp32_B1"], MEMBERS)
+        for tag, dt, B in configs:
+            ok, rec = zoo_eval(
+                "FPNHybridFusion", tag, dt, B, models[tag], sds, card,
+                timed=tag == "bf16_B4",
+                per_member=(per_forward if spec.is_batchnorm
+                            else NO_BN_PER_FORWARD))
+            check(ok, dict(rec, phase="arch_ensemble", variant=name),
+                  f"{name} ensemble {tag}")
+            if tag == "bf16_B4":
+                launches[f"{name}_ensemble"] = rec["launches"]
+        del models
+        torch.cuda.empty_cache()
+        ok, rec = arch_train(cfg, spec, torch.bfloat16, 4, sds[0])
+        want = per_step if spec.is_batchnorm else NO_BN_PER_FORWARD
+        counted = zoo_launches_ok(rec["launches"], want, 1)
+        check(ok and counted, {"phase": "arch_train", "variant": name,
+                               "config": "bf16_B4", "expected": want,
+                               "launches_match": counted, **rec},
+              f"{name} train step")
+        launches[f"{name}_train"] = rec["launches"]
+        if not spec.is_batchnorm:
+            ok, st = zoo_small_vs_cpu("FPNHybridFusion", sds[1], spec)
+            check(ok, {"phase": "arch_small_vs_cpu", "variant": name, **st},
+                  f"{name} small input vs CPU")
+        torch.cuda.empty_cache()
+
+    # (c) widths that the kernels take only in part, with BatchNorm
+    for name, widths in ARCH_WIDTHS.items():
+        spec = arch_spec(widths)
+        model = build_model(cfg, spec=spec, dtype=torch.bfloat16)
+        sds = member_state_dicts(model, MEMBERS)
+        ok, rec = zoo_eval("FPNHybridFusion", "bf16_B4", torch.bfloat16, 4,
+                           model, sds, card,
+                           per_member=ARCH_PER_MEMBER[name])
+        check(ok, dict(rec, phase="arch_widths_ensemble", widths=widths),
+              f"widths {name} ensemble")
+        launches[f"{name}_ensemble"] = rec["launches"]
+        ok, rec = arch_train(cfg, spec, torch.bfloat16, 4, sds[0])
+        check(ok, {"phase": "arch_widths_train", "widths": widths,
+                   "config": "bf16_B4", **rec}, f"widths {name} train step")
+        launches[f"{name}_train"] = rec["launches"]
+        del model
+        torch.cuda.empty_cache()
+    # the planted control: every conv of a fused stage with ci >= 8 forced
+    # onto the fused conv (its predicate, ``blocks.fused_conv_takes``,
+    # replaced by one that takes everything): the first that the kernel
+    # refuses (tiny_spec's 8 -> 8 conv of stage 3) must raise in the
+    # wrapper's check
+    model = build_model(cfg, spec=arch_spec(ARCH_WIDTHS["tiny"]),
+                        dtype=torch.bfloat16)
+    model.load_state_dict(member_state_dicts(model, 1)[0])
+    batch = zoo_batch("FPNHybridFusion", 4, 1)
+    raised = ""
+    saved = blocks.fused_conv_takes
+    blocks.fused_conv_takes = lambda *a, **k: True
+    try:
+        with torch.inference_mode():
+            model(batch)
+        torch.cuda.synchronize()
+    except ValueError as exc:
+        raised = str(exc)
+    finally:
+        blocks.fused_conv_takes = saved
+    check(bool(raised), {"phase": "arch_planted_width", "raised": raised},
+          "a conv forced onto a kernel that refuses its widths did not "
+          "raise")
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) the train entry point with an ini that sets both toggles, 4 bf16
+    # steps, then its last.ckpt served by the serving entry point
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+        paths = train_tree(j("tree"), ARCH_VISITS, 1, ENTRY_OCT, ENTRY_SLO,
+                           41)
+        with open(j("arch.ini"), "w") as f:
+            f.write(ARCH_INI)
+        argv = train_argv(paths, "bf16", 1, TRAIN_BATCH, ARCH_MULTIPLIER,
+                          ["--arch-config", j("arch.ini")])
+        info, files, got, _ = train_run(argv, j("train"))
+        n_steps = ARCH_VISITS * ARCH_MULTIPLIER // TRAIN_BATCH
+        ok = (info["steps"] == n_steps and "last.ckpt" in files
+              and all(np.isfinite(info["losses"]))
+              and zoo_launches_ok(got, NO_BN_PER_FORWARD,
+                                  info["steps"] + info["eval_forwards"]))
+        check(ok, {"phase": "arch_train_entry", "steps": info["steps"],
+                   "losses": info["losses"], "launches": got,
+                   "eval_forwards": info["eval_forwards"],
+                   "img_per_s_entry": info["images"] / info["seconds"],
+                   "card": card}, "the train entry point with both toggles")
+        launches["train_entry"] = got
+        os.makedirs(j("ckpt"))
+        for i in range(MEMBERS):
+            os.symlink(files["last.ckpt"],
+                       j("ckpt", f"epoch={i}-Dice=0.5.ckpt"))
+        serve = entry_argv(paths, "bf16") + ["--arch-config", j("arch.ini")]
+        info, out, got, _ = entry_run(paths, "bf16", j("serve"), j("ckpt"),
+                                      argv=serve)
+        preds = np.load(out["all_outputs.npz"])["pred"]
+        n_forwards = MEMBERS * -(-info["images"] // ENTRY_BATCH)
+        ok = (info["images"] == 1 and np.isfinite(preds).all()
+              and zoo_launches_ok(got, NO_BN_PER_FORWARD, n_forwards)
+              and info["skipped"])
+        check(ok, {"phase": "arch_serve_entry", "images": info["images"],
+                   "launches": got, "forwards": n_forwards,
+                   "prediction_range": [float(preds.min()),
+                                        float(preds.max())],
+                   "card": card}, "serving the toggled run's last.ckpt")
+        launches["serve_entry"] = got
+    emit({"phase": "arch_done", "ok": not failures,
+          "seconds": time.time() - t0, "card": card})
+    return failures, launches
+
+
 def per_step(records, field):
     return sum(r[field] * r["calls_per_step"] for r in records)
 
@@ -3984,7 +4218,12 @@ def main() -> int:
         shapes["bf16_B4"]["launches"])
     failures += dp_failures
 
-    # --- 14. summary ------------------------------------------------------
+    # --- 14. the architecture ini's toggles and the width rule -----------
+    arch_failures, arch_launches = arch_phase(
+        card, configs, shapes["bf16_B4"]["launches"], main_launches["train"])
+    failures += arch_failures
+
+    # --- 15. summary ------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
         prefix = RECORD_PREFIX.get(path, "")
@@ -4007,6 +4246,8 @@ def main() -> int:
             "launches_entry_point": main_launches["entry"][name],
             "launches_train_entry": main_launches["train_entry"][name],
             "launches_data_parallel": [r.get(name, 0) for r in dp_launches],
+            "launches_arch": {run: v.get(name, 0)
+                              for run, v in arch_launches.items()},
             "launches_vrc": sum(v[name] for v in vrc_launches.values()),
             "launches_vrc_paths": {p: v[name]
                                    for p, v in vrc_launches.items()},

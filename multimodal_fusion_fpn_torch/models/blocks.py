@@ -10,14 +10,26 @@ Counterparts of ``multimodal_fusion_fpn_tpu/models/blocks.py``:
   * ``ZDimReduction``: stride-2 (1,1,3) cascade + VALID (1,1,4) ``fully``
     conv (``blocks.py:905-1211``).
   * ``UpBlock2``: 2-input decoder block (``blocks.py:1224-1246``).
-  * ``UpBlockFusion``: 3-input decoder block in concat mode
-    (``blocks.py:1249-1279``).
+  * ``UpBlockFusion``: 3-input decoder block, its two skips concatenated
+    or added (``blocks.py:1249-1279``).
+  * ``UpConv``: the decoder's transposed conv with ``is_deconv``
+    (``_up``, ``blocks.py:1214-1220``), in place of the nearest upsample.
 
 Parameters keep the original project's state-dict names and torch shapes
 (``convBlock.<i>.0.weight``, ``convBlock.<i>.1.running_var``,
-``downsample.0.weight``, ...); 2D convs keep their 2D shapes.  Weights stay
-fp32 and are cast to the compute dtype per call; the folded BN affine is
-computed in fp32 and then cast.
+``downsample.0.weight``, ``up.weight`` as ``ConvTranspose3d`` keeps it,
+...); 2D convs keep their 2D shapes.  Weights stay fp32 and are cast to
+the compute dtype per call; the folded BN affine is computed in fp32 and
+then cast.
+
+Without BatchNorm (the ini's ``is-batchnorm=false``, ``bn=False``) each
+conv of a block, the downsample's included, carries a bias
+(``convBlock.<i>.0.bias``, ``use_bias=not self.use_bn``, ``blocks.py:
+727,756,1078,1095``) and its fold into the next conv's prologue is scale
+1 and that bias (``_affine``), in training too: no batch stats, no running
+stats.  Such a stage is not ``fused`` (``fused_stage_bs:262``,
+``ZDimReduction._fused_bs:1145``): its convs run the plain version (cuDNN
+on the card), its pools still the kernel, with the first-max backward.
 
 BatchNorm in training (``_BNFold`` / ``TorchBatchNorm``,
 ``blocks.py:288-371``) normalises with the batch mean and the BIASED batch
@@ -44,12 +56,19 @@ context stack; here they are an argument.
 
 Which convs run a hand-written kernel when ``kernels`` is True mirrors
 where the JAX package runs its Pallas kernels: the encoder stages and
-projection cascades of at most 64 channels take the fused conv
-(``ops.fused_conv``), except the convs whose input is narrow (ci < 8: the
-first conv and 1x1x1 downsample of both stage 1s, also the narrow entry of
-the chain), which take the banded conv (``ops.banded_conv``, K10, the
-kernel of the JAX package's per-op blocked path ``banded_conv_blocked``;
-the default fused path there computes the same conv in XLA).  K10 has no
+projection cascades of at most 64 channels with BatchNorm (``fused``) take
+the fused conv (``ops.fused_conv``), except the convs whose input is
+narrow (ci < 8: the first conv and 1x1x1 downsample of both stage 1s, also
+the narrow entry of the chain), which take the banded conv
+(``ops.banded_conv``, K10, the kernel of the JAX package's per-op blocked
+path ``banded_conv_blocked``; the default fused path there computes the
+same conv in XLA).  A conv goes to a kernel only where that kernel takes
+its widths, dtype and gradient (each module's ``takes``, the predicate
+its wrapper's check also applies: K1, K2 and K7 need ci % 8 == 0 and
+co % 16 == 0, their backward ci % 16 == 0, K10 co in {1, 16, 32, 64},
+K8 its shared-memory plan); a conv it refuses runs the plain version, as
+the convs of a wider stage do.  The JAX package has no such rule: its
+Pallas kernels take any width of at most 64 channels.  K10 has no
 prologue and no stats epilogue: an affine + ReLU before it runs in plain
 torch, with the extents in the kernel; in training it runs through
 ``BandedConv`` (dw, and dx where the input needs it, through its kernels)
@@ -88,18 +107,25 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from multimodal_fusion_fpn_torch.ops.banded_conv import banded_conv
+from multimodal_fusion_fpn_torch.ops.banded_conv import \
+    takes as banded_conv_takes
 from multimodal_fusion_fpn_torch.ops.dynamic_extent import mask_valid
 from multimodal_fusion_fpn_torch.ops.fused_block import (fused_chain,
                                                          fused_chain_plain,
                                                          fused_pair,
                                                          fused_pair_plain)
+from multimodal_fusion_fpn_torch.ops.fused_block import \
+    takes as fused_block_takes
 from multimodal_fusion_fpn_torch.ops.fused_conv import (affine_relu,
                                                         channel_sums,
                                                         conv3d_cl,
                                                         fused_conv)
+from multimodal_fusion_fpn_torch.ops.fused_conv import \
+    takes as fused_conv_takes
 from multimodal_fusion_fpn_torch.ops.upsample import upsample_nearest
 from multimodal_fusion_fpn_torch.parallel.comm import (all_reduce_sum,
                                                       sync_group)
@@ -129,15 +155,25 @@ def xavier_normal_(w: torch.Tensor,
 
 
 class ConvWeight(nn.Module):
-    """A bias-free conv kernel in torch layout (O, I, k...)."""
+    """A conv kernel in torch layout (O, I, k...), with a bias (O,) when
+    ``bias`` (the convs of a block without BatchNorm)."""
 
-    def __init__(self, ci: int, co: int, kernel: Sequence[int]):
+    def __init__(self, ci: int, co: int, kernel: Sequence[int],
+                 bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(co, ci, *kernel))
+        self.bias = nn.Parameter(torch.empty(co)) if bias else None
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
         xavier_normal_(self.weight, generator)
+        if self.bias is not None:
+            # zero for a 3D conv, N(0, 1) for a 2D one
+            # (``conv_bias_init_for_rank``, ``blocks.py:49-52``)
+            v = (torch.zeros(self.bias.shape) if self.weight.dim() == 5
+                 else torch.randn(self.bias.shape, generator=generator))
+            with torch.no_grad():
+                self.bias.copy_(v)
 
     @property
     def taps(self) -> Tuple[int, int, int]:
@@ -171,6 +207,34 @@ class Conv1x1(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.permute(2, 3, 4, 1, 0).to(x.dtype)
         return conv3d_cl(x, w, (1, 1, 1), (0, 0, 0)) + self.bias.to(x.dtype)
+
+
+class UpConv(nn.Module):
+    """The decoder's transposed conv with kernel = stride = the up factor
+    and a bias (``_up`` with ``is_deconv``, ``blocks.py:1214-1220``):
+    weight (I, O, kY, kX, kz) as ``torch.nn.ConvTranspose3d`` keeps it, on
+    channels-last tensors.  Each input position writes its own
+    kY x kX x kz block of the output, so there is no overlap and no
+    padding; it runs the plain version (cuDNN on the card)."""
+
+    def __init__(self, ci: int, co: int, upfactor: Sequence[int]):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(ci, co, *upfactor))
+        self.bias = nn.Parameter(torch.empty(co))
+        self.upfactor = tuple(upfactor)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        # xavier kernel, bias N(0, 1) (``blocks.py:1216-1218``)
+        xavier_normal_(self.weight, generator)
+        with torch.no_grad():
+            self.bias.copy_(torch.randn(self.bias.shape, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3),
+                               self.weight.to(x.dtype),
+                               self.bias.to(x.dtype), stride=self.upfactor)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 class BNFold(nn.Module):
@@ -308,33 +372,53 @@ def _full(ext: Extents, t: torch.Tensor):
     return tuple(t.shape[1 + i] if e is None else e for i, e in enumerate(ext))
 
 
-def _conv_bn(ci: int, co: int, kernel: Sequence[int]) -> nn.ModuleList:
+def _conv_bn(ci: int, co: int, kernel: Sequence[int],
+             bn: bool) -> nn.ModuleList:
+    """[conv, BatchNorm], or [conv with a bias] without BatchNorm."""
+    if not bn:
+        return nn.ModuleList([ConvWeight(ci, co, kernel, bias=True)])
     return nn.ModuleList([ConvWeight(ci, co, kernel), BNFold(co)])
 
 
+def _affine(layer: nn.ModuleList, dtype: torch.dtype,
+            y: Optional[torch.Tensor] = None,
+            sums=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s, b) in ``dtype`` that follow a ``_conv_bn`` layer's conv: its
+    BatchNorm folded (:meth:`BNFold.folded`), or, without BatchNorm,
+    scale 1 and the conv's bias (no batch stats in training)."""
+    if len(layer) == 2:
+        return layer[1].folded(dtype, y, sums)
+    bias = layer[0].bias
+    return torch.ones(bias.shape, dtype=dtype, device=bias.device), \
+        bias.to(dtype)
+
+
 class ConvX(nn.Module):
-    """Residual conv block in eval: the convs with BN+ReLU between them,
-    BN after the last, identity or 1x1(+BN) residual, final ReLU.
+    """Residual conv block: the convs with BN+ReLU between them, BN after
+    the last, identity or 1x1(+BN) residual, final ReLU; without BatchNorm
+    (``bn`` False) each conv has a bias in its place.
 
     Inputs are channels-last 3D, (B, Y, X, Z, C); a 2D block (2-tuple
     kernels) takes the singleton-X view (B, H, 1, W, C).  Convs are SAME
     (k//2 per axis) unless ``padding="valid"``; ``stride_z`` strides every
     conv along z and ``ds_stride_z`` the 1x1 downsample.  ``fused``: the
-    block's convs may run the hand-written kernel (see the module note).
-    ``dropout``: the rate of the dropout after the final ReLU (training).
+    block is one the JAX package lowers to its Pallas kernels, and its
+    convs run the hand-written kernels where those take them (see the
+    module note).  ``dropout``: the rate of the dropout after the final
+    ReLU (training).
     """
 
     def __init__(self, ci: int, co: int, kernels: Sequence[Sequence[int]],
                  stride_z: int = 1, padding: str = "same",
                  residual: bool = True, downsample: bool = False,
                  ds_stride_z: int = 1, fused: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, bn: bool = True):
         super().__init__()
         self.convBlock = nn.ModuleList(
-            _conv_bn(ci if i == 0 else co, co, k)
+            _conv_bn(ci if i == 0 else co, co, k, bn)
             for i, k in enumerate(kernels))
         rank = len(kernels[0])
-        self.downsample = (_conv_bn(ci, co, (1,) * rank) if downsample
+        self.downsample = (_conv_bn(ci, co, (1,) * rank, bn) if downsample
                            else None)
         self.stride_z = stride_z
         self.padding = padding
@@ -347,17 +431,24 @@ class ConvX(nn.Module):
         """-> (y, sums): in training a fused conv also returns the fp32
         (sum y, sum y*y) of its stats epilogue; otherwise sums is None.
         ``ext``: the true extents of x (module note)."""
-        ci = w.shape[3]
+        ci, co, taps = w.shape[3], w.shape[4], tuple(w.shape[:3])
         dyn = None if ext is None else _full(ext, x)
         if kernels and self.fused and self.padding == "same":
-            if ci >= 8 and self.training:
-                y, s1, s2 = fused_conv(x, s, b, w, relu, stride_z,
-                                       with_stats=True)
-                return y, (s1, s2)
-            if ci >= 8:
+            # which gradients the backward computes, if it runs
+            grad = torch.is_grad_enabled()
+            x_grad = grad and any(t is not None and t.requires_grad
+                                  for t in (x, s, b))
+            backward = x_grad or (grad and w.requires_grad)
+            if ci >= 8 and fused_conv_takes(ci, co, taps, stride_z, backward,
+                                            x.dtype):
+                if self.training:
+                    y, s1, s2 = fused_conv(x, s, b, w, relu, stride_z,
+                                           with_stats=True)
+                    return y, (s1, s2)
                 return fused_conv(x, s, b, w, relu, stride_z,
                                   dyn_extents=dyn), None
-            if stride_z == 1:
+            if ci < 8 and banded_conv_takes(ci, co, taps, stride_z, x_grad,
+                                            x.dtype):
                 return banded_conv(affine_relu(x, s, b, relu), w, dyn), None
         pad = ((0, 0, 0) if self.padding == "valid"
                else tuple(k // 2 for k in w.shape[:3]))
@@ -367,28 +458,43 @@ class ConvX(nn.Module):
     def out_extents(self, ext: Extents) -> Extents:
         """The true extents of the block's output for input extents
         ``ext``."""
-        for conv, _ in self.convBlock:
-            ext = conv_extents(ext, conv.taps,
+        for layer in self.convBlock:
+            ext = conv_extents(ext, layer[0].taps,
                                self.stride_z, self.padding == "valid")
         return ext
 
-    def _fusion(self, block_fusion: Optional[str], ci: int):
+    def _fusion(self, block_fusion: Optional[str], x: torch.Tensor):
         """(the fusion that applies, narrow entry): the eval fusion of the
         JAX package's ``MMF_FUSED_CHAIN`` / ``MMF_FUSED_PAIR`` applies where
         it applies there (``blocks.py:542-660``): in eval, to a 3D block of a
         fused stage at z stride 1 (not to the 2D stages or the stride-2
         cascades), the chain when at least two convs follow a narrow (ci <
-        8) entry, which an identity-residual block never has."""
+        8) entry, which an identity-residual block never has, and the
+        kernel takes them (``ops.fused_block.takes``; else per conv)."""
         if block_fusion not in (None, "pair", "chain"):
             raise ValueError(f"ConvX: unknown block_fusion {block_fusion!r}")
+        ci = x.shape[-1]
         if (block_fusion is None or self.training or not self.fused
                 or self.stride_z != 1 or self.padding != "same"
                 or self.convBlock[0][0].weight.dim() != 5):
             return None, False
         narrow = ci < 8 and not (self.residual and self.downsample is None)
-        if block_fusion == "chain" and len(self.convBlock) - narrow < 2:
-            return None, narrow
+        if block_fusion == "chain":
+            convs = [layer[0] for layer in self.convBlock][int(narrow):]
+            co = convs[0].weight.shape[0]
+            if len(convs) < 2 or not fused_block_takes(
+                    co if narrow else ci, co, [c.taps for c in convs], 1,
+                    False, x.dtype, self._chain_final(narrow)):
+                return None, narrow
         return block_fusion, narrow
+
+    def _chain_final(self, narrow: bool) -> str:
+        """The chain's final mode (``ops.fused_block``)."""
+        if narrow:
+            return "affine"
+        if self.downsample is not None:
+            return "res_conv"
+        return "res_id" if self.residual else "relu"
 
     def _residual(self, out, x, kernels, ext):
         """``out`` plus the block's residual of input ``x``."""
@@ -396,12 +502,12 @@ class ConvX(nn.Module):
             return out
         if self.downsample is None:
             return out + x
-        conv, bn = self.downsample
         dt = x.dtype
-        ds, sums = self._conv(x, None, None, conv.logical(dt), False,
+        ds, sums = self._conv(x, None, None,
+                              self.downsample[0].logical(dt), False,
                               self.ds_stride_z,
                               kernels and self.ds_stride_z == 1, ext)
-        sd, bd = bn.folded(dt, ds, sums)
+        sd, bd = _affine(self.downsample, dt, ds, sums)
         return out + ds * sd + bd
 
     def _chain(self, x, kernels, ext, narrow):
@@ -409,20 +515,19 @@ class ConvX(nn.Module):
         version with ``kernels`` False.  A narrow entry conv runs before it
         as in the per-op path, and the chain stops at the last affine."""
         dt = x.dtype
-        layers = [(conv.logical(dt), *bn.folded(dt))
-                  for conv, bn in self.convBlock]
+        layers = [(layer[0].logical(dt), *_affine(layer, dt))
+                  for layer in self.convBlock]
         dyn = None if ext is None else _full(ext, x)
         xin, s_in, b_in, relu0, ds = x, None, None, False, None
+        final = self._chain_final(narrow)
         if narrow:
             xin, _ = self._conv(x, None, None, layers[0][0], False, 1,
                                 kernels, ext)
             _, s_in, b_in = layers[0]
-            relu0, layers, final = True, layers[1:], "affine"
-        elif self.downsample is not None:
-            conv, bn = self.downsample
-            final, ds = "res_conv", (conv.logical(dt), *bn.folded(dt))
-        else:
-            final = "res_id" if self.residual else "relu"
+            relu0, layers = True, layers[1:]
+        elif final == "res_conv":
+            ds = (self.downsample[0].logical(dt), *_affine(self.downsample,
+                                                           dt))
         chain = fused_chain if kernels else fused_chain_plain
         out = chain(xin, s_in, b_in, relu0, layers, final, ds, dyn)
         if final == "affine":
@@ -437,32 +542,37 @@ class ConvX(nn.Module):
         fusion of ``ops.fused_block``, where it applies: ``_fusion``)."""
         if ext is not None and self.training:
             raise ValueError("ConvX: true extents are eval-only")
-        fusion, narrow = self._fusion(block_fusion, x.shape[-1])
+        fusion, narrow = self._fusion(block_fusion, x)
         if fusion == "chain":
             return self._chain(x, kernels, ext, narrow)
         dt = x.dtype
         cur, s, b, e = x, None, None, ext
         n, i = len(self.convBlock), 0
         while i < n:
-            conv, bn = self.convBlock[i]
-            w = conv.logical(dt)
+            layer = self.convBlock[i]
+            w = layer[0].logical(dt)
             if (fusion == "pair" and i + 1 < n and w.shape[0] == 1
                     and self.convBlock[i + 1][0].taps[0] == 1
-                    and not (i == 0 and narrow)):
+                    and not (i == 0 and narrow)
+                    and fused_block_takes(
+                        cur.shape[-1], w.shape[4],
+                        (w.shape[:3], self.convBlock[i + 1][0].taps), 1,
+                        False, dt, "raw")):
                 # two convs in one kernel; their extents stay (stride 1)
-                conv1, bn1 = self.convBlock[i + 1]
-                s_mid, b_mid = bn.folded(dt)
+                nxt = self.convBlock[i + 1]
+                s_mid, b_mid = _affine(layer, dt)
                 pair_fn = fused_pair if kernels else fused_pair_plain
-                cur = pair_fn(cur, s, b, w, s_mid, b_mid, conv1.logical(dt),
-                              i > 0, None if e is None else _full(e, cur))
-                s, b = bn1.folded(dt)
+                cur = pair_fn(cur, s, b, w, s_mid, b_mid,
+                              nxt[0].logical(dt), i > 0,
+                              None if e is None else _full(e, cur))
+                s, b = _affine(nxt, dt)
                 i += 2
                 continue
             cur, sums = self._conv(cur, s, b, w, i > 0, self.stride_z,
                                    kernels, e)
             e = conv_extents(e, w.shape[:3], self.stride_z,
                              self.padding == "valid")
-            s, b = bn.folded(dt, cur, sums)
+            s, b = _affine(layer, dt, cur, sums)
             i += 1
         out = self._residual(cur * s + b, x, kernels, ext)
         return dropout(mask_extents(torch.relu(out), e), self.dropout,
@@ -473,20 +583,21 @@ class EncoderStage(nn.ModuleList):
     """The '2plus3' stage: (1,3,3)x2, then (1,3,3)x2 + (3,1,1), or
     (1,3)x2, (1,3)x2 + (3,1) in 2D; a 1x1+BN projection when the channel
     count changes.  3D input (B, Y, X, Z, C), 2D input (B, H, W, C).
-    ``fused``: the stage takes the kernels (at most 64 channels and no
-    dropout, ``blocks.fused_stage_bs``)."""
+    ``fused``: the JAX package lowers the stage to its Pallas kernels (at
+    most 64 channels, BatchNorm and no dropout, ``blocks.fused_stage_bs``);
+    ``bn`` False: conv biases in place of BatchNorm."""
 
     def __init__(self, ci: int, co: int, ndim: int = 3,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, bn: bool = True):
         if ndim == 3:
             k_a, k_b = ((1, 3, 3),) * 2, ((1, 3, 3),) * 2 + ((3, 1, 1),)
         else:
             k_a, k_b = ((1, 3),) * 2, ((1, 3),) * 2 + ((3, 1),)
-        fused = co <= FUSED_MAX_CHANNELS and dropout <= 0.0
+        fused = co <= FUSED_MAX_CHANNELS and dropout <= 0.0 and bn
         super().__init__([
             ConvX(ci, co, k_a, downsample=ci != co, fused=fused,
-                  dropout=dropout),
-            ConvX(co, co, k_b, fused=fused, dropout=dropout)])
+                  dropout=dropout, bn=bn),
+            ConvX(co, co, k_b, fused=fused, dropout=dropout, bn=bn)])
         self.ndim = ndim
         self.fused = fused
 
@@ -507,17 +618,20 @@ class EncoderStage(nn.ModuleList):
 class ZDimReduction(nn.ModuleList):
     """Depth projection head: ``num_reductions`` stride-2 (1,1,3) convs with
     a strided 1x1 residual ('red'), then a VALID (1,1,final_kernel) conv
-    ('fully').  The caller takes the mean over the remaining depth."""
+    ('fully').  The caller takes the mean over the remaining depth.  The
+    cascade is ``fused`` as the JAX package's ``_fused_bs`` has it (at
+    most 64 channels and BatchNorm)."""
 
-    def __init__(self, c: int, num_reductions: int, final_kernel: int = 4):
+    def __init__(self, c: int, num_reductions: int, final_kernel: int = 4,
+                 bn: bool = True):
         fully = ConvX(c, c, ((1, 1, final_kernel),), padding="valid",
-                      residual=False)
+                      residual=False, bn=bn)
         if num_reductions == 0:
             super().__init__([fully])
         else:
             red = ConvX(c, c, ((1, 1, 3),) * num_reductions, stride_z=2,
                         downsample=True, ds_stride_z=2 ** num_reductions,
-                        fused=c <= FUSED_MAX_CHANNELS)
+                        fused=c <= FUSED_MAX_CHANNELS and bn, bn=bn)
             super().__init__([red, fully])
 
     def forward(self, x: torch.Tensor, kernels: bool = True,
@@ -528,40 +642,61 @@ class ZDimReduction(nn.ModuleList):
         return x
 
 
+def _up(deeper: torch.Tensor, up: Optional[UpConv],
+        upfactor: Sequence[int]) -> torch.Tensor:
+    """The deeper map upsampled: nearest, or through ``up`` (deconv)."""
+    if up is None:
+        return upsample_nearest(deeper, upfactor, axes=(1, 2, 3))
+    return up(deeper)
+
+
 class UpBlock2(nn.Module):
-    """Decoder block of the single-modality nets: nearest upsample of the
-    deeper map, concat with one skip, ConvX (3,3,1)x2 with a 1x1
+    """Decoder block of the single-modality nets: the deeper map upsampled
+    (nearest, or with ``deconv`` a transposed conv to ``c_cur`` channels,
+    ``up``), concat with one skip, ConvX (3,3,1)x2 with a 1x1
     projection."""
 
     def __init__(self, c_low: int, c_cur: int, upfactor: Sequence[int],
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, bn: bool = True,
+                 deconv: bool = False):
         super().__init__()
-        self.conv = ConvX(c_low + c_cur, c_cur, ((3, 3, 1),) * 2,
-                          downsample=True, dropout=dropout)
+        self.up = UpConv(c_low, c_cur, upfactor) if deconv else None
+        c_up = c_cur if deconv else c_low
+        self.conv = ConvX(c_cur + c_up, c_cur, ((3, 3, 1),) * 2,
+                          downsample=True, dropout=dropout, bn=bn)
         self.upfactor = tuple(upfactor)
 
     def forward(self, skip, deeper, kernels: bool = True,
                 ext: Extents = None):
         """``ext``: the true extents of the skip, (y, x, None)."""
-        up = upsample_nearest(deeper, self.upfactor, axes=(1, 2, 3))
+        up = _up(deeper, self.up, self.upfactor)
         return self.conv(torch.cat([skip, up], dim=-1), kernels, ext)
 
 
 class UpBlockFusion(nn.Module):
-    """Decoder block fusing a 3D skip, a 2D skip and the deeper features
-    (``mode='concat'``): nearest upsample of the deeper map, concat, ConvX
+    """Decoder block fusing a 3D skip, a 2D skip and the deeper features:
+    the deeper map upsampled as in :class:`UpBlock2`, concatenated with
+    both skips (``mode='concat'``) or with their sum (``'add'``), ConvX
     (3,3,1)x2 with a 1x1 projection."""
 
     def __init__(self, c_low: int, c_cur: int, upfactor: Sequence[int],
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, bn: bool = True,
+                 deconv: bool = False, mode: str = "concat"):
         super().__init__()
-        self.conv = ConvX(c_low + 2 * c_cur, c_cur, ((3, 3, 1),) * 2,
-                          downsample=True, dropout=dropout)
+        if mode not in ("concat", "add"):
+            raise ValueError(f"Unknown feature fusion mode: {mode}")
+        self.up = UpConv(c_low, c_cur, upfactor) if deconv else None
+        c_up = c_cur if deconv else c_low
+        c_skips = 2 * c_cur if mode == "concat" else c_cur
+        self.conv = ConvX(c_skips + c_up, c_cur, ((3, 3, 1),) * 2,
+                          downsample=True, dropout=dropout, bn=bn)
         self.upfactor = tuple(upfactor)
+        self.mode = mode
 
     def forward(self, skip3d, skip2d, deeper, kernels: bool = True,
                 ext: Extents = None):
         """``ext``: the true extents of the skips, (y, x, None)."""
-        up = upsample_nearest(deeper, self.upfactor, axes=(1, 2, 3))
-        return self.conv(torch.cat([skip3d, skip2d, up], dim=-1), kernels,
-                         ext)
+        up = _up(deeper, self.up, self.upfactor)
+        skips = ([skip3d, skip2d] if self.mode == "concat"
+                 else [skip3d + skip2d])
+        return self.conv(torch.cat(skips + [up], dim=-1), kernels, ext)

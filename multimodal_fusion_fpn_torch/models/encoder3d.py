@@ -5,11 +5,13 @@ inter-stage layout; every pool runs the hand-written kernel when
 ``kernels`` is True.
 
 The pool's backward follows the JAX package's default lowering per stage:
-the outputs of the fused stages (at most 64 channels and no dropout,
-packed in the JAX package) pool with the Pallas kernel, whose backward
-sends the cotangent to every tied max; the outputs of the other stages
-(the wider stage 4, a stage with dropout) pool with XLA's
-``reduce_window``, whose backward sends it to the first max.
+the outputs of the fused stages (at most 64 channels, BatchNorm and no
+dropout, packed in the JAX package) pool with the Pallas kernel, whose
+backward sends the cotangent to every tied max; the outputs of the other
+stages (the wider stage 4, a stage with dropout or without BatchNorm)
+pool with XLA's ``reduce_window``, whose backward sends it to the first
+max.  The rule follows the JAX package's lowering, not the widths the
+port's conv kernels take.
 
 Under exact shape bucketing (eval) the loops also carry each level's true
 extents: a window == stride pool floors them (``pooled_ext``,

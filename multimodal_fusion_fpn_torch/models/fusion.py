@@ -4,8 +4,12 @@
 A 5-stage 3D encoder with depth-projection heads and a depth mean, a
 parallel 5-stage 2D encoder whose skips are aligned to the 3D en-face
 resolution, the two bottlenecks concatenated, and a decoder fusing
-(3D skip, 2D skip, deeper) per level, then ``final1``.
-Layouts: 3D (B, Y, X, Z, C); 2D (B, H, W, C).
+(3D skip, 2D skip, deeper) per level, then ``final1``: the skips
+concatenated (``feature_fusion="concat"``) or added (``"add"``).  The
+architecture ini's toggles hold as in ``ModifiedUnet3D``; with
+``is_deconv`` the bottleneck's transposed conv takes the concatenated
+bottlenecks.  The JAX package's 4-level variant is not ported yet
+(ROADMAP).  Layouts: 3D (B, Y, X, Z, C); 2D (B, H, W, C).
 
 Exact shape bucketing (eval): ``forward`` takes the true extents of the
 padded volume (y, x, z) and en-face map (h, w).  The encoders carry them
@@ -27,7 +31,7 @@ from multimodal_fusion_fpn_torch.models.encoder3d import (run_2d_encoder,
                                                           run_3d_encoder)
 from multimodal_fusion_fpn_torch.models.unet3d import (NUM_REDUCTIONS,
                                                        POOLS_3D, UPFACTORS,
-                                                       check_spec, project)
+                                                       project)
 from multimodal_fusion_fpn_torch.ops.dynamic_extent import (
     adaptive_max_pool_dynamic, linear_resize_dynamic)
 from multimodal_fusion_fpn_torch.ops.interpolate import linear_resize
@@ -69,27 +73,30 @@ def align_2d_skip(skip2d: torch.Tensor, target_shape,
 class ModifiedUnet3D2D(nn.Module):
     """The levels=5 hybrid net; submodule names follow the original
     project's state dict (``conv1``, ``conv1_2d``, ``zdimRed1``,
-    ``up_concat1``, ``final1``, ...)."""
+    ``up_concat1``, ``final1``, ...).  ``feature_fusion``: "concat" or
+    "add", how each decoder block fuses its two skips
+    (``blocks.UpBlockFusion``)."""
 
     def __init__(self, spec: ArchSpec, n_classes: int = 1,
-                 interpolate: Optional[str] = None):
+                 interpolate: Optional[str] = None,
+                 feature_fusion: str = "concat"):
         super().__init__()
-        check_spec(spec)
-        ch, drop = spec.channels, spec.dropout
+        ch, drop, bn = spec.channels, spec.dropout, spec.is_batchnorm
         self.interpolate = interpolate
         cins = (1,) + tuple(ch[:4])
         for i in range(5):
             setattr(self, f"conv{i + 1}",
-                    EncoderStage(cins[i], ch[i], 3, drop[i]))
+                    EncoderStage(cins[i], ch[i], 3, drop[i], bn))
             setattr(self, f"conv{i + 1}_2d",
-                    EncoderStage(cins[i], ch[i], 2, drop[i]))
+                    EncoderStage(cins[i], ch[i], 2, drop[i], bn))
             setattr(self, f"zdimRed{i + 1}",
-                    ZDimReduction(ch[i], NUM_REDUCTIONS[i]))
+                    ZDimReduction(ch[i], NUM_REDUCTIONS[i], bn=bn))
         lows = (ch[4] * 2, ch[3], ch[2], ch[1])  # bottleneck concat first
         for i, lvl in enumerate((3, 2, 1, 0)):
             setattr(self, f"up_concat{lvl + 1}",
                     UpBlockFusion(lows[i], ch[lvl], UPFACTORS[i],
-                                  drop[5 + i]))
+                                  drop[5 + i], bn, spec.is_deconv,
+                                  feature_fusion))
         self.final1 = Conv1x1(ch[0], n_classes)
 
     def forward(self, volume: torch.Tensor, enface: torch.Tensor,

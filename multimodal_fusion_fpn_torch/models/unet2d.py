@@ -5,8 +5,9 @@ The 2D encoder stages of the fusion net (``conv1_2d`` .. ``conv5_2d``) over
 a (B, H, W, C) map, the skips lifted to (B, H, W, 1, C) (the volume names
 y, x for h, w), the decoder of 2-input up blocks of ``ModifiedUnet3D`` and
 ``final1``, or the (B, H, W, 1, channels[0]) features before it when
-``output_features``.  The JAX package's 4-level variant is not ported: no
-zoo model reaches it.
+``output_features``.  The architecture ini's toggles hold as in
+``ModifiedUnet3D``.  The JAX package's 4-level variant is not ported yet
+(ROADMAP).
 
 Exact shape bucketing (eval): ``forward`` takes the true (h, w) of the
 padded map; the encoder carries them per level and the decoder masks to
@@ -20,8 +21,7 @@ from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
 from multimodal_fusion_fpn_torch.models.blocks import EncoderStage
 from multimodal_fusion_fpn_torch.models.encoder3d import run_2d_encoder
 from multimodal_fusion_fpn_torch.models.fusion import POOLS_2D
-from multimodal_fusion_fpn_torch.models.unet3d import (add_decoder,
-                                                       check_spec, decode)
+from multimodal_fusion_fpn_torch.models.unet3d import add_decoder, decode
 
 
 class ModifiedUnet2D(nn.Module):
@@ -31,13 +31,13 @@ class ModifiedUnet2D(nn.Module):
     def __init__(self, spec: ArchSpec, n_classes: int = 1,
                  output_features: bool = False):
         super().__init__()
-        check_spec(spec)
         ch, drop = spec.channels, spec.dropout
         cins = (1,) + tuple(ch[:4])
         for i in range(5):
             setattr(self, f"conv{i + 1}_2d",
-                    EncoderStage(cins[i], ch[i], 2, drop[i]))
-        add_decoder(self, ch, None if output_features else n_classes, drop)
+                    EncoderStage(cins[i], ch[i], 2, drop[i],
+                                 spec.is_batchnorm))
+        add_decoder(self, spec, None if output_features else n_classes)
 
     def forward(self, enface: torch.Tensor, kernels: bool = True,
                 ext2d=None) -> torch.Tensor:

@@ -7,8 +7,12 @@ projection heads (``zdimRed1..5``) each followed by a mean over the
 remaining depth, a 4-level decoder of 2-input up blocks (``UpBlock2``)
 and a final 1x1x1 conv (``final1``, left out when ``use_1x1`` is False).
 ``classification=True`` returns the stage-5 output before any pool and
-builds no projection or decoder.  The JAX package's ``original`` variant
-(final kernel 8, no mean) is not ported: no zoo model reaches it.
+builds no projection or decoder.  The architecture ini's toggles hold for
+every block: ``is_batchnorm=False`` gives each conv a bias in place of its
+BatchNorm (such stages run the plain convs: ``blocks.EncoderStage``),
+``is_deconv=True`` upsamples in the decoder with a transposed conv
+(``blocks.UpConv``).  The JAX package's ``original`` variant (final kernel
+8, no mean) is not ported yet (ROADMAP).
 
 Exact shape bucketing (eval): ``forward`` takes the true extents (y, x, z)
 of the padded volume; the encoder carries them per level, the depth mean
@@ -32,12 +36,6 @@ from multimodal_fusion_fpn_torch.ops.dynamic_extent import masked_mean
 POOLS_3D = ((1, 2, 2), (1, 2, 2), (2, 2, 2), (2, 2, 2))
 UPFACTORS = ((2, 2, 1), (2, 2, 1), (1, 2, 1), (1, 2, 1))
 NUM_REDUCTIONS = (4, 3, 2, 1, 0)
-
-
-def check_spec(spec: ArchSpec) -> None:
-    if not spec.is_batchnorm or spec.is_deconv:
-        raise NotImplementedError(
-            "the port supports is_batchnorm=True, is_deconv=False")
 
 
 def project(net: nn.Module, skips, exts, kernels: bool):
@@ -65,15 +63,18 @@ def decode(net: nn.Module, skips, exts, kernels: bool) -> torch.Tensor:
     return up
 
 
-def add_decoder(net: nn.Module, ch, n_classes: Optional[int],
-                dropout=(0.0,) * 9) -> None:
+def add_decoder(net: nn.Module, spec: ArchSpec,
+                n_classes: Optional[int]) -> None:
     """``up_concat1..4`` of 2-input blocks, ``up_concat4`` .. ``up_concat1``
-    with the dropout of slots 5-8, and ``final1`` (None when ``n_classes``
-    is None)."""
+    with the dropout of slots 5-8 and the spec's toggles, and ``final1``
+    (None when ``n_classes`` is None)."""
+    ch = spec.channels
     lows = (ch[4], ch[3], ch[2], ch[1])
     for i, lvl in enumerate((3, 2, 1, 0)):
         setattr(net, f"up_concat{lvl + 1}",
-                UpBlock2(lows[i], ch[lvl], UPFACTORS[i], dropout[5 + i]))
+                UpBlock2(lows[i], ch[lvl], UPFACTORS[i],
+                         spec.dropout[5 + i], spec.is_batchnorm,
+                         spec.is_deconv))
     net.final1 = None if n_classes is None else Conv1x1(ch[0], n_classes)
 
 
@@ -84,18 +85,17 @@ class ModifiedUnet3D(nn.Module):
     def __init__(self, spec: ArchSpec, n_classes: int = 1,
                  use_1x1: bool = True, classification: bool = False):
         super().__init__()
-        check_spec(spec)
-        ch, drop = spec.channels, spec.dropout
+        ch, drop, bn = spec.channels, spec.dropout, spec.is_batchnorm
         self.classification = classification
         cins = (1,) + tuple(ch[:4])
         for i in range(5):
             setattr(self, f"conv{i + 1}",
-                    EncoderStage(cins[i], ch[i], 3, drop[i]))
+                    EncoderStage(cins[i], ch[i], 3, drop[i], bn))
         if not classification:
             for i in range(5):
                 setattr(self, f"zdimRed{i + 1}",
-                        ZDimReduction(ch[i], NUM_REDUCTIONS[i]))
-            add_decoder(self, ch, n_classes if use_1x1 else None, drop)
+                        ZDimReduction(ch[i], NUM_REDUCTIONS[i], bn=bn))
+            add_decoder(self, spec, n_classes if use_1x1 else None)
 
     def forward(self, volume: torch.Tensor, kernels: bool = True,
                 ext3d=None,

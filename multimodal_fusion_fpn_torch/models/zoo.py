@@ -152,12 +152,17 @@ class FPNClassification(_ZooModel):
 
 @add_class
 class FPNHybridFusion(_ZooModel):
+    """``feature_fusion``: "concat" (the JAX package's default) or "add",
+    how the decoder fuses the 3D and 2D skips (``zoo.py:127,144``)."""
+
     def __init__(self, spec: ArchSpec, n_classes: int = 1,
                  fusion_modality: str = "slo",
                  interpolate: Optional[str] = None,
+                 feature_fusion: str = "concat",
                  dtype: torch.dtype = torch.float32):
         super().__init__(fusion_modality, dtype)
-        self.resensnet = ModifiedUnet3D2D(spec, n_classes, interpolate)
+        self.resensnet = ModifiedUnet3D2D(spec, n_classes, interpolate,
+                                          feature_fusion)
 
     def forward(self, batch, kernels: bool = True,
                 block_fusion: Optional[str] = None):

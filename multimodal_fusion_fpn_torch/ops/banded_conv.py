@@ -31,6 +31,10 @@ lines; the generic kernel, one thread per output position, runs the rest
 (the data gradient among them).  Both add the taps in the same order and
 give the same bits (short of a partial sum that underflows to -0, or a
 weight that is not finite, at a tap outside the volume: the .cu note).
+:func:`refusal` / :func:`takes` state what the
+kernels take (with ``training``, also the data gradient's kernel), the
+rule that the wrappers' checks and the model's routing
+(``models.blocks.ConvX``) share.
 Launches are counted as ``launches["banded_conv"]``,
 ``"banded_conv_dyn"`` (with extents), ``"banded_conv_wgrad"`` and
 ``"banded_conv_dgrad"``; ``calls`` keeps (kernel, x shape, w shape, dtype,
@@ -109,30 +113,52 @@ def banded_conv_dgrad_plain(g: torch.Tensor, w: torch.Tensor
     return banded_conv_plain(g, flipped(w))
 
 
-def _check_kernel(kernel_shape) -> None:
-    """Raises ValueError unless the kernels take a (kY, kX, kz, ci, co)
-    kernel: every tap in {1, 3}, 1 <= ci <= 64, co in {1, 16, 32, 64}."""
-    if any(k not in (1, 3) for k in kernel_shape[:3]):
-        raise ValueError(f"banded_conv: no kernel for taps "
-                         f"{tuple(kernel_shape[:3])}")
-    ci, co = kernel_shape[3], kernel_shape[4]
+def refusal(ci: int, co: int, taps: Sequence[int], stride_z: int = 1,
+            training: bool = False,
+            dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
+    """Why the CUDA kernels do not take a conv of ``ci`` -> ``co`` channels
+    with logical taps (kY, kX, kz) at z stride ``stride_z`` in ``dtype``, or
+    None when they take it: the forward and the weight gradient (every tap
+    in {1, 3}, stride 1, 1 <= ci <= 64, co in {1, 16, 32, 64}) and, with
+    ``training``, the data gradient, the same kernel with ci and co
+    swapped.  The one rule that the wrappers' checks and the model's
+    routing (``blocks.ConvX``) share."""
+    if dtype not in _DTYPES:
+        return f"unsupported dtype {dtype}"
+    if stride_z != 1 or any(k not in (1, 3) for k in taps):
+        return f"no kernel for taps {tuple(taps)} at z stride {stride_z}"
     if not 1 <= ci <= 64 or co not in _CO:
-        raise ValueError(f"banded_conv: kernel needs 1 <= ci <= 64 and co in "
-                         f"{_CO}, got ci={ci}, co={co}")
+        return (f"kernel needs 1 <= ci <= 64 and co in {_CO}, got ci={ci}, "
+                f"co={co}")
+    if training:
+        why = refusal(co, ci, taps, 1, False, dtype)
+        return None if why is None else f"the data gradient's {why}"
+    return None
 
 
-def _check(x: torch.Tensor, kernel_shape: Sequence[int], others) -> None:
+def takes(ci: int, co: int, taps: Sequence[int], stride_z: int = 1,
+          training: bool = False, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the CUDA kernels take the conv (:func:`refusal`)."""
+    return refusal(ci, co, taps, stride_z, training, dtype) is None
+
+
+def _check(x: torch.Tensor, kernel_shape: Sequence[int], others,
+           training: bool = False) -> None:
     """What the CUDA kernels take (raises ValueError otherwise): x
-    (B, Y, X, Z, ci) fp32 or bf16 with a kernel :func:`_check_kernel`
-    takes, and ``others`` ((name, tensor, shape or None): w, or g for the
-    weight gradient) of x's type on x's device; all contiguous."""
+    (B, Y, X, Z, ci) with a kernel :func:`refusal` takes (``training``: its
+    data gradient too), and ``others`` ((name, tensor, shape or None): w,
+    or g for the weight gradient) of x's type on x's device; all
+    contiguous."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"banded_conv: unsupported dtype {x.dtype}")
     kernel_shape = tuple(kernel_shape)
     if x.dim() != 5 or len(kernel_shape) != 5 or kernel_shape[3] != x.shape[4]:
         raise ValueError(f"banded_conv: x {tuple(x.shape)} / kernel "
                          f"{kernel_shape} mismatch")
-    _check_kernel(kernel_shape)
+    why = refusal(kernel_shape[3], kernel_shape[4], kernel_shape[:3], 1,
+                  training, x.dtype)
+    if why is not None:
+        raise ValueError(f"banded_conv: {why}")
     for name, t, shape in others:
         if t.device != x.device or t.dtype != x.dtype:
             raise ValueError(f"banded_conv: {name} is {t.dtype} on "
@@ -266,7 +292,5 @@ def banded_conv(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("banded_conv: dyn_extents is eval-only (no "
                          "gradient)")
     if _device(x, "banded_conv") == "cuda":
-        _check(x, w.shape, [("w", w, None)])
-        if x.requires_grad:   # the data gradient's kernel
-            _check_kernel(tuple(w.shape[:3]) + (w.shape[4], w.shape[3]))
+        _check(x, w.shape, [("w", w, None)], training=x.requires_grad)
     return BandedConv.apply(x, w)

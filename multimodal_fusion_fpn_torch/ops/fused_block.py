@@ -48,7 +48,11 @@ fp32 FMAs, bitwise equal to the fp32 per-conv path.  The bf16 CUDA-core
 instance of ``fused_block.cu`` stays reachable through the private
 ``tensor_cores=False`` of :func:`_launch`, bitwise equal to the CUDA-core
 per-conv path: only for comparing the two on the card; the model never
-passes it.  :func:`plan` gives the tiling a call takes.
+passes it.  :func:`plan` gives the tiling a call takes; :func:`refusal` /
+:func:`takes` say whether the kernel takes a block (its taps, widths,
+final mode and a window whose tiles fit in shared memory, computed here
+as the .cu plans compute it), the rule that the wrappers' checks and the
+model's routing (``models.blocks.ConvX``) share.
 
 Launch counters: ``launches["fused_chain"]``, ``["fused_pair"]``, and
 ``["fused_chain_dyn"]`` / ``["fused_pair_dyn"]`` for calls with extents;
@@ -173,6 +177,83 @@ def _no_grad(who, tensors):
                          f"kernel has no backward)")
 
 
+# shared memory a block may opt in to on sm_90 (``kMaxSmem`` in the .cu
+# sources), the bf16 padding of each shared row of the tensor-core kernel
+# (``kPad``) and the z positions of a CUDA-core tile (``kTZ``)
+_MAX_SMEM = 227 * 1024
+_PAD, _CUDA_CORE_TZ = 8, 32
+
+
+def _smem_fits(ci: int, co: int, n_conv: int, final: str,
+               dtype: torch.dtype, mma: bool) -> bool:
+    """Whether the tiles of the kernel's smallest window fit in shared
+    memory at any X and Z.  The plan of the .cu sources (:func:`plan`)
+    takes a window whenever that one fits: a 1 x 16 window with the
+    weights streamed at 64 channels on the tensor cores
+    (``csrc/fused_block_mma.cu``, ``layout``), TX = 1 on the CUDA cores
+    (``csrc/fused_block.cu``, ``smem_bytes``)."""
+    ky3 = n_conv == 3
+    if not mma:
+        tz = _CUDA_CORE_TZ
+        esize = 4 if dtype == torch.float32 else 2
+        return esize * (ci * 5 * (tz + 4) + co * 3 * (tz + 2)
+                        + (3 * co * tz if ky3 else 0)) <= _MAX_SMEM
+    ci16 = -(-ci // 16) * 16
+    ldi, ldo, tx, tz = ci16 + _PAD, co + _PAD, 1, 16
+    total = 2 * ci16 + 8 * co
+    total += (2 * 9 * 16 * ldo if co == 64
+              else (9 * ci16 + 9 * co + (3 * co if ky3 else 0)) * ldo)
+    if final == "res_conv":
+        total += ci16 * ldo
+    if final in ("res_id", "res_conv"):
+        total += tx * tz * ldi
+    total += ((tx + 4) * (tz + 4) * ldi + (tx + 2) * (tz + 2) * ldo
+              + (3 * tx * tz * ldo if ky3 else 0))
+    return 2 * total <= _MAX_SMEM
+
+
+def refusal(ci: int, co: int, taps: Sequence[Sequence[int]],
+            stride_z: int = 1, training: bool = False,
+            dtype: torch.dtype = torch.bfloat16, final: str = "relu",
+            tensor_cores: bool = True) -> Optional[str]:
+    """Why the kernel does not take a block of convs with logical taps
+    ``taps`` ((kY, kX, kz) per conv), ``ci`` -> ``co`` channels at z stride
+    ``stride_z`` in ``dtype`` with the final mode ``final``, or None when it
+    takes it: eval only, two (1,3,3) convs or (1,3,3), (1,3,3), (3,1,1),
+    ci % 8 == 0 and co % 16 == 0, co in (16, 32, 64) on the tensor cores,
+    and tiles that fit in shared memory (:func:`_smem_fits`).  The one rule
+    that the wrappers' checks and the model's routing (``blocks.ConvX``)
+    share."""
+    if training:
+        return "eval only (the kernel has no backward)"
+    if dtype not in _fc._DTYPES:
+        return f"unsupported dtype {dtype}"
+    taps = tuple(tuple(t) for t in taps)
+    if stride_z != 1 or taps not in (_TAPS[:2], _TAPS):
+        return (f"no kernel for taps {taps} at z stride {stride_z}: it takes "
+                f"two (1,3,3) convs, or (1,3,3), (1,3,3), (3,1,1)")
+    if ci % 8 or co % 16:
+        return (f"kernel needs ci % 8 == 0 and co % 16 == 0, got ci={ci}, "
+                f"co={co}")
+    if final == "res_id" and ci != co:
+        return f"res_id needs ci == co, got {ci}, {co}"
+    mma = _tensor_cores(dtype, tensor_cores)
+    if mma and co not in (16, 32, 64):
+        return (f"the bf16 kernel (tensor cores) takes co in (16, 32, 64), "
+                f"got ci={ci}, co={co}")
+    if not _smem_fits(ci, co, len(taps), final, dtype, mma):
+        return (f"the tiles of ci={ci}, co={co} in {dtype} do not fit in "
+                f"shared memory")
+    return None
+
+
+def takes(ci: int, co: int, taps: Sequence[Sequence[int]],
+          stride_z: int = 1, training: bool = False,
+          dtype: torch.dtype = torch.bfloat16, final: str = "relu") -> bool:
+    """Whether the kernel takes the block (:func:`refusal`)."""
+    return refusal(ci, co, taps, stride_z, training, dtype, final) is None
+
+
 def _check(who, x, s_in, b_in, convs, final, ds):
     """What the kernel takes (module note); raises ValueError otherwise."""
     if x.dtype not in _fc._DTYPES:
@@ -188,14 +269,12 @@ def _check(who, x, s_in, b_in, convs, final, ds):
         raise ValueError(f"{who}: weights "
                          f"{[tuple(w.shape) for w, _, _ in convs]} do not "
                          f"chain from {ci} input channels")
-    if ci % 8 or co % 16:
-        raise ValueError(f"{who}: kernel needs ci % 8 == 0 and co % 16 == 0, "
-                         f"got ci={ci}, co={co}")
+    why = refusal(ci, co, taps, 1, False, x.dtype, final)
+    if why is not None:
+        raise ValueError(f"{who}: {why}")
     if (s_in is None) != (b_in is None):
         raise ValueError(f"{who}: s_in and b_in must both be given or both "
                          f"be None")
-    if final == "res_id" and ci != co:
-        raise ValueError(f"{who}: res_id needs ci == co, got {ci}, {co}")
     vecs = [("s_in", s_in, ci), ("b_in", b_in, ci)]
     for j, (_, s, b) in enumerate(convs):
         if final == "raw" and j == len(convs) - 1:
@@ -219,16 +298,10 @@ def _check(who, x, s_in, b_in, convs, final, ds):
                              f"{t.device}; x is {x.dtype} on {x.device}")
     if not x.is_contiguous():
         raise ValueError(f"{who}: x is not contiguous")
-    if _tensor_cores(x) and co not in (16, 32, 64):
-        raise ValueError(f"{who}: the bf16 kernel (tensor cores) takes co in "
-                         f"(16, 32, 64), got ci={ci}, co={co}")
-    if plan(x, len(convs), co, final)[0] == 0:
-        raise ValueError(f"{who}: the tiles of ci={ci}, co={co} in "
-                         f"{x.dtype} do not fit in shared memory")
 
 
-def _tensor_cores(x, tensor_cores=True):
-    return tensor_cores and x.dtype == torch.bfloat16
+def _tensor_cores(dtype, tensor_cores=True):
+    return tensor_cores and dtype == torch.bfloat16
 
 
 def plan(x: torch.Tensor, n_conv: int, co: int, final: str = "relu",
@@ -240,7 +313,7 @@ def plan(x: torch.Tensor, n_conv: int, co: int, final: str = "relu",
     kernel unless ``tensor_cores`` is False."""
     B, Y, X, Z, ci = x.shape
     out = (ctypes.c_longlong * 6)()
-    if _tensor_cores(x, tensor_cores):
+    if _tensor_cores(x.dtype, tensor_cores):
         fn = _fc._fn("fused_block_mma", "mmf_fused_block_mma_plan",
                      [_INT] * 8 + [_PTR])
         rc = fn(n_conv, FINALS.index(final), B, Y, X, Z, ci, co,
@@ -262,7 +335,7 @@ def _launch(name, x, s_in, b_in, relu0, convs, final, ds, ext,
     never passes it."""
     B, Y, X, Z, ci = x.shape
     co = convs[0][0].shape[4]
-    mma = _tensor_cores(x, tensor_cores)
+    mma = _tensor_cores(x.dtype, tensor_cores)
     out = torch.empty((B, Y, X, Z, co), dtype=x.dtype, device=x.device)
     # bf16 weights as they are (tensor cores); fp32 for the CUDA cores
     wt = ((lambda w: w.contiguous()) if mma

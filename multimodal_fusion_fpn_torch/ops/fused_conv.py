@@ -61,6 +61,13 @@ Source note.  The CUDA kernels replace the TPU kernels of
   ``tensor_cores=False`` of :func:`_launch_dgrad` / :func:`_launch_wgrad`,
   for comparing the two on the card.
 
+Widths.  The kernels take the taps above with ci % 8 == 0 and co % 16 ==
+0, and their backward ci % 16 == 0.  :func:`refusal` says why a conv is
+not taken (None when it is), :func:`takes` whether it is; the wrappers'
+checks on a CUDA tensor and the model's routing (``models.blocks.ConvX``)
+both apply it, so the model sends a conv the kernels refuse to the plain
+version, and a caller that passes one on the card gets ``ValueError``.
+
 The TPU kernel's second input (``n_in=2``) is unused on every model path
 and is left out; so is its ``preferred_element_type`` (the models always
 emit the compute dtype).  At the stage 1-3 shapes a call is about 37 GFLOP
@@ -235,19 +242,42 @@ def _check_extents(x, dyn_extents, who="fused_conv"):
     return ext
 
 
+def refusal(ci: int, co: int, taps: Sequence[int], stride_z: int = 1,
+            training: bool = False,
+            dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
+    """Why the CUDA kernels do not take a conv of ``ci`` -> ``co`` channels
+    with logical taps (kY, kX, kz) at z stride ``stride_z`` in ``dtype``, or
+    None when they take it: the forward (K1, K2, K7) and, with
+    ``training``, the backward (K3, K4, K6).  The one rule that the
+    wrappers' checks and the model's routing (``blocks.ConvX``) share."""
+    if dtype not in _DTYPES:
+        return f"unsupported dtype {dtype}"
+    if tuple(taps) + (stride_z,) not in _TAPS:
+        return f"no kernel for taps {tuple(taps)} at z stride {stride_z}"
+    if ci % 8 or co % 16:
+        return (f"kernel needs ci % 8 == 0 and co % 16 == 0, got ci={ci}, "
+                f"co={co}")
+    if training and ci % 16:
+        return f"the backward kernels need ci % 16 == 0, got ci={ci}"
+    return None
+
+
+def takes(ci: int, co: int, taps: Sequence[int], stride_z: int = 1,
+          training: bool = False, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the CUDA kernels take the conv (:func:`refusal`)."""
+    return refusal(ci, co, taps, stride_z, training, dtype) is None
+
+
 def _check(x, scale, bias, w, stride_z):
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_conv: unsupported dtype {x.dtype}")
     if x.dim() != 5 or w.dim() != 5 or w.shape[3] != x.shape[4]:
         raise ValueError(f"fused_conv: x {tuple(x.shape)} / w "
                          f"{tuple(w.shape)} mismatch")
-    if tuple(w.shape[:3]) + (stride_z,) not in _TAPS:
-        raise ValueError(f"fused_conv: no kernel for taps {tuple(w.shape[:3])}"
-                         f" at z stride {stride_z}")
     ci, co = w.shape[3], w.shape[4]
-    if ci % 8 or co % 16:
-        raise ValueError(f"fused_conv: kernel needs ci % 8 == 0 and "
-                         f"co % 16 == 0, got ci={ci}, co={co}")
+    why = refusal(ci, co, w.shape[:3], stride_z, False, x.dtype)
+    if why is not None:
+        raise ValueError(f"fused_conv: {why}")
     if (scale is None) != (bias is None):
         raise ValueError("fused_conv: scale and bias must both be given "
                          "or both be None")
@@ -272,10 +302,10 @@ def _out_shape(x, w, stride_z):
 
 def _check_bwd(x, w, stride_z, g=None, stats_cot=None):
     """What the backward kernels take beyond the forward's checks."""
-    ci = w.shape[3]
-    if ci % 16:
-        raise ValueError(f"fused_conv_bwd: kernel needs ci % 16 == 0, "
-                         f"got ci={ci}")
+    why = refusal(w.shape[3], w.shape[4], w.shape[:3], stride_z, True,
+                  x.dtype)
+    if why is not None:
+        raise ValueError(f"fused_conv_bwd: {why}")
     tensors = [] if g is None else [("g", g, _out_shape(x, w, stride_z))]
     if stats_cot is not None:
         y, gs1, gs2 = stats_cot

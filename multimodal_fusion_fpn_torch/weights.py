@@ -7,10 +7,17 @@ its own copy of the name table: flax ``conv{i}`` / ``bn{i}`` /
 ``ds_conv`` / ``ds_bn`` inside a block become ``convBlock.<i>.0`` /
 ``convBlock.<i>.1`` / ``downsample.0`` / ``downsample.1``; encoder stage
 ``block<j>`` becomes ``<j>``; projection ``red`` / ``fully`` become
-``0`` / ``1`` (``fully`` is ``0`` at level 5, which has no cascade).
-Kernels go from (k..., I, O) to (O, I, k...); BN ``scale`` / ``bias`` /
-``mean`` / ``var`` become ``weight`` / ``bias`` / ``running_mean`` /
-``running_var``, and ``num_batches_tracked`` is 0.  The root of a path
+``0`` / ``1`` (``fully`` is ``0`` at level 5, which has no cascade); a
+decoder block's ``conv`` and ``up`` (its transposed conv with
+``is_deconv``) keep their names.  Kernels go from (k..., I, O) to
+(O, I, k...), and a conv's ``bias`` (a block without BatchNorm) keeps its
+name; the transposed conv's kernel goes from flax's (k..., I, O) to
+``torch.nn.ConvTranspose3d``'s (I, O, k...) flipped in every tap axis
+(flax does not flip it, torch's transposed conv does).  BN ``scale`` /
+``bias`` / ``mean`` / ``var`` become ``weight`` / ``bias`` /
+``running_mean`` / ``running_var``, and ``num_batches_tracked`` is 0.  The
+JAX package's own import (``train/torch_import.py``) has no entry for
+``up`` (ROADMAP, "Reference faults").  The root of a path
 (``resensnet``, ``resensnet3d``, ``resensnet2d``) is kept as it is; a conv
 at the model's top level (``one_one``, ``fusion_module``) keeps its name.
 """
@@ -55,6 +62,8 @@ def _module_key(path) -> str:
         seq = "0" if (rest[0] == "red" or level == 5) else "1"
         return f"{root}.{mod}.{seq}.{_convx_sub(rest[1])}"
     if mod.startswith("up_concat"):
+        if rest[0] == "up":
+            return f"{root}.{mod}.up"
         return f"{root}.{mod}.conv.{_convx_sub(rest[1])}"
     if mod.startswith("conv"):
         return f"{root}.{mod}.{rest[0][len('block'):]}.{_convx_sub(rest[1])}"
@@ -69,7 +78,12 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
     for path, v in _flatten(params):
         key, leaf = _module_key(path[:-1]), path[-1]
         a = np.asarray(v, np.float32)
-        if leaf == "kernel":  # (k..., I, O) -> (O, I, k...)
+        if leaf == "kernel" and path[-2] == "up":
+            # (k..., I, O) -> (I, O, k...), each tap axis flipped
+            taps = tuple(range(a.ndim - 2))
+            out[key + ".weight"] = torch.from_numpy(np.ascontiguousarray(
+                np.flip(a, taps).transpose((a.ndim - 2, a.ndim - 1) + taps)))
+        elif leaf == "kernel":  # (k..., I, O) -> (O, I, k...)
             perm = (a.ndim - 1, a.ndim - 2) + tuple(range(a.ndim - 2))
             out[key + ".weight"] = torch.from_numpy(
                 np.ascontiguousarray(a.transpose(perm)))

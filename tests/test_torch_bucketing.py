@@ -350,9 +350,11 @@ def test_bucketed_model_routes_every_fused_conv_to_the_extents_instance(
             1 <= e <= n for e, n in zip(ext, shape[1:4])), (shape, ext)
         assert ext != shape[1:4]
     # at these widths the first 3D conv that takes the kernel is in stage
-    # 3, after two (1, 2, 2) pools
+    # 4 (16 channels), after two (1, 2, 2) pools and a (2, 2, 2) one: the
+    # kernels take no conv of the 8-channel stage 3 (co % 16,
+    # ``ops.fused_conv.takes``)
     first3d = next(e for s, e in seen if s[2] > 1)
-    assert first3d == (Y, X // 4, Z // 4)
+    assert first3d == (Y // 2, X // 8, Z // 8)
 
 
 # --- Hausdorff distances ------------------------------------------------------

@@ -1106,3 +1106,161 @@ def test_banded_conv_routing_on_the_card(gen):
                                           "mask": mask})
     torch.cuda.synchronize()
     assert tuple(ops.kernel_launches()[k] for k in K10) == (4, 0, 4, 0)
+
+
+# --- the width rule (ops.*.takes) ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_each_wrapper_launches_what_its_predicate_takes(gen, dtype):
+    """At a width each predicate takes, its wrapper launches its kernel; at
+    one it refuses (co = 24, 48, ...), the wrapper raises, and the
+    predicate's reason is the wrapper's message."""
+    from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                 device="cuda").to(dtype)
+    # K1 forward, and its backward in training
+    for ci, co, train, takes in ((16, 32, False, True), (16, 24, False, False),
+                                 (24, 48, False, True), (24, 48, True, False),
+                                 (32, 48, True, True)):
+        assert tfc.takes(ci, co, (1, 3, 3), 1, train, dtype) == takes
+        x, w = rnd(1, 3, 5, 20, ci), rnd(1, 3, 3, ci, co) * 0.2
+        if train:
+            x.requires_grad_()
+        before = tfc.launches["fused_conv"]
+        if takes:
+            y = tfc.fused_conv(x, None, None, w, False)
+            if train:
+                y.sum().backward()
+            torch.cuda.synchronize()
+            assert tfc.launches["fused_conv"] == before + 1
+        else:
+            why = tfc.refusal(ci, co, (1, 3, 3), 1, train, dtype)
+            with pytest.raises(ValueError, match=why.split(",")[0]):
+                tfc.fused_conv(x, None, None, w, False)
+    # K10, and its data gradient in training
+    for ci, co, train, takes in ((1, 16, False, True), (1, 24, False, False),
+                                 (2, 16, True, False), (1, 16, True, True)):
+        assert tbc.takes(ci, co, (1, 3, 3), 1, train, dtype) == takes
+        x, w = rnd(1, 3, 5, 20, ci), rnd(1, 3, 3, ci, co)
+        if train:
+            x.requires_grad_()
+        before = tbc.launches["banded_conv"]
+        if takes:
+            tbc.banded_conv(x, w)
+            torch.cuda.synchronize()
+            assert tbc.launches["banded_conv"] == before + 1
+        else:
+            with pytest.raises(ValueError, match="co in"):
+                tbc.banded_conv(x, w)
+    # K8: the chain of two (1,3,3) convs
+    for ci, co, takes in ((16, 32, True), (16, 48, dtype == torch.float32),
+                          (12, 16, False)):
+        assert tfb.takes(ci, co, ((1, 3, 3),) * 2, 1, False, dtype) == takes
+        x = rnd(1, 3, 5, 20, ci)
+        convs = [(rnd(1, 3, 3, ci, co) * 0.2, rnd(co), rnd(co)),
+                 (rnd(1, 3, 3, co, co) * 0.2, rnd(co), rnd(co))]
+        before = tfb.launches["fused_chain"]
+        if takes:
+            tfb.fused_chain(x, None, None, False, convs, "relu")
+            torch.cuda.synchronize()
+            assert tfb.launches["fused_chain"] == before + 1
+        else:
+            with pytest.raises(ValueError):
+                tfb.fused_chain(x, None, None, False, convs, "relu")
+
+
+@pytest.mark.cuda
+def test_block_predicate_fit_matches_the_kernel_plan(gen):
+    """The shared-memory fit of ``fused_block.refusal`` against the
+    kernels' own plan (``plan``: TX = 0 when no window fits), over input
+    widths up to 512 for every instance, final mode and precision."""
+    from multimodal_fusion_fpn_torch.ops import fused_block as tfb
+    for dtype, tc in ((torch.bfloat16, True), (torch.bfloat16, False),
+                      (torch.float32, False)):
+        for n_conv, taps in ((2, ((1, 3, 3),) * 2),
+                             (3, ((1, 3, 3),) * 2 + ((3, 1, 1),))):
+            for co in (16, 32, 64):
+                for final in ("raw", "relu", "res_conv"):
+                    for ci in range(8, 520, 8):
+                        x = torch.empty(1, 4, 16, 48, ci, dtype=dtype,
+                                        device="cuda")
+                        fits = tfb.plan(x, n_conv, co, final, tc)[0] > 0
+                        why = tfb.refusal(ci, co, taps, 1, False, dtype,
+                                          final, tc)
+                        assert (why is None) == fits, (dtype, tc, n_conv,
+                                                       co, final, ci, why)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [(2, 4, 8, 16, 32),
+                                      (24, 48, 96, 192, 384)])
+def test_partly_taken_widths_run_on_the_card(gen, channels):
+    """The hybrid at widths the kernels take only in part: the bf16
+    logits on the kernels against ``kernels=False``, with at least one
+    fused conv launched (BatchNorm running stats drawn far from the
+    identity: at the init's, the tiny net's sigmoid is 0.5 in bf16)."""
+    from types import SimpleNamespace
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    from multimodal_fusion_fpn_torch.weights import init_state_dict
+    cfg = SimpleNamespace(model="FPNHybridFusionRegression",
+                          crop="relative_2d_max", fusion_modality="slo",
+                          number_of_outputs=1)
+    model = build_model(cfg, spec=ArchSpec(channels), dtype=torch.bfloat16)
+    sd = {k: v.cpu() for k, v in init_state_dict(model, 2).items()}
+    cpu = torch.Generator().manual_seed(2)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            v.normal_(0.0, 0.5, generator=cpu)
+        elif k.endswith("running_var"):
+            v.uniform_(0.5, 2.0, generator=cpu)
+    model.load_state_dict(sd)
+    batch = {"image": torch.randn(2, 1, 8, 64, 32, generator=gen,
+                                  device="cuda"),
+             "slo": torch.randn(2, 1, 80, 1, 32, generator=gen,
+                                device="cuda")}
+    ops.reset_launches()
+    with torch.inference_mode():
+        y = model(batch)["prediction"]
+        torch.cuda.synchronize()
+        assert ops.kernel_launches()["fused_conv"] > 0
+        ref = model(batch, kernels=False)["prediction"]
+    _assert_close(y.float(), ref.float(), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("bn", [True, False])
+def test_deconv_hybrid_matches_plain(gen, dtype, bn):
+    """FPNHybridFusion with ``is_deconv`` (and without BatchNorm): the
+    forward on the kernels against ``kernels=False``; without BatchNorm
+    only the pools launch a kernel."""
+    from types import SimpleNamespace
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
+    from multimodal_fusion_fpn_torch.models.zoo import build_model
+    from multimodal_fusion_fpn_torch.weights import init_state_dict
+    cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
+                          fusion_modality="slo", number_of_outputs=1)
+    model = build_model(cfg, spec=ArchSpec((16, 32, 64, 128, 256),
+                                           is_batchnorm=bn, is_deconv=True),
+                        dtype=dtype)
+    init_state_dict(model, 3)
+    batch = {"image": torch.randn(2, 1, 8, 64, 32, generator=gen,
+                                  device="cuda"),
+             "slo": torch.randn(2, 1, 80, 1, 32, generator=gen,
+                                device="cuda")}
+    ops.reset_launches()
+    with torch.inference_mode():
+        y = model(batch)["prediction"]
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in ops.kernel_launches().items() if n}
+        ref = model(batch, kernels=False)["prediction"]
+    if bn:
+        assert launches["fused_conv"] > 0 and launches["banded_conv"] == 4
+    else:
+        assert launches == {"max_pool3d_cl": 8}
+    _assert_close(y.float() - 0.5, ref.float() - 0.5, dtype)

@@ -54,7 +54,7 @@ def jax_template(sd):
     against), with no JAX trace of the model's init.  That the table gives
     the JAX model's own trees is held here for the hybrid
     (``test_state_dict_round_trips_through_torch_import``) and for the
-    rest of the zoo in ``tests/test_torch_zoo.py``."""
+    late-fusion net, both trunks, in ``tests/test_torch_zoo.py``."""
     params, stats = map_state_dict(sd, {}, {}, strict=False)
     shapes = lambda t: jax.tree.map(  # noqa: E731
         lambda a: jax.ShapeDtypeStruct(np.shape(a), np.float32), t)

@@ -2,7 +2,11 @@
 package's, on the CPU.
 
 * End to end: ``tests/test_e2e.py``'s synthetic HRF data (written by the
-  port), tiny ini and argv, 2 epochs, ``--multiplier 1``, both entry points
+  port), tiny ini and argv with FPN2D (the entry points hold the same
+  trainer, loaders and files for every model; the hybrid's float64 train
+  step is held in ``tests/test_torch_train.py`` and
+  ``tests/test_torch_parallel.py``, and FPN2D's JAX step compiles in a
+  fraction of the hybrid's time), 2 epochs, ``--multiplier 1``, both entry points
   (``python -m multimodal_fusion_fpn_torch.train``'s ``run`` and
   ``train.py``'s) from the same weights through ``--model-weights``: a port
   ``.ckpt`` of the port's seeded init, and the msgpack that the JAX
@@ -107,7 +111,7 @@ def run_dirs(tmp_path_factory):
 def _argv(run_dirs, ini="tiny", extra=()):
     return [
         "--training-dataset", "hrf_fusion",
-        "--model", "FPNHybridFusion",
+        "--model", "FPN2D",
         "--crop", "relative_2d_max",
         "--fusion-modality", "slo",
         "--version", "train_entry",

@@ -412,36 +412,47 @@ def _spec(channels, rates):
                                             for i in range(9)))
 
 
-def _jax_calls(jm, params, stats, jb):
-    """The (shape, keep probability) of each dropout mask of one
-    train-mode forward, in call order (an abstract trace)."""
+def _port_calls(name, spec, sd, batch):
+    """The (number of elements, keep probability) of each dropout mask of
+    the port's train-mode forward, in call order (every element kept)."""
+    model = build_model(_cfg(name), spec=spec, device="cpu")
+    model.load_state_dict(sd)
+    model.train()
     calls = []
 
-    def record(key, p=0.5, shape=None):
-        calls.append((tuple(shape), float(p)))
-        return jnp.ones(shape, bool)
+    def record(shape, keep_prob, generator):
+        calls.append((int(np.prod(shape)), round(keep_prob, 9)))
+        return torch.ones(shape, dtype=torch.bool)
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax.random, "bernoulli", record)
-        jax.eval_shape(lambda p, s: jm.apply(
-            {"params": p, "batch_stats": s}, jb, train=True,
-            rngs={"dropout": jax.random.PRNGKey(0)},
-            mutable=["batch_stats"]), params, stats)
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(tblocks, "dropout_mask", record)
+        with tblocks.dropout_generator(torch.Generator()):
+            model({k: torch.from_numpy(v) for k, v in batch.items()})
     return calls
 
 
-def _jax_grad_fn(jm, crit):
+def _jax_grad_fn(jm, crit, calls):
     """value_and_grad of the train-mode forward plus the loss, the masks
-    an argument (each ``jax.random.bernoulli`` call takes the next)."""
-    def loss_fn(p, s, b, masks):
-        it = iter(masks)
+    one flat argument: each ``jax.random.bernoulli`` call takes the next
+    elements, its (shape, keep probability) appended to ``calls`` while
+    the function is traced."""
+    def loss_fn(p, s, b, flat):
+        at = 0
+
+        def bernoulli(key, p=0.5, shape=None):
+            nonlocal at
+            n = int(np.prod(shape))
+            calls.append((tuple(shape), float(p)))
+            at += n
+            return flat[at - n:at].reshape(shape)
+
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jax.random, "bernoulli",
-                       lambda key, p=0.5, shape=None: next(it))
+            mp.setattr(jax.random, "bernoulli", bernoulli)
             out, upd = jm.apply({"params": p, "batch_stats": s}, b,
                                 train=True,
                                 rngs={"dropout": jax.random.PRNGKey(0)},
                                 mutable=["batch_stats"])
+        assert at == flat.shape[0], (at, flat.shape)
         loss, parts = crit(b, out)
         return loss, (parts, upd["batch_stats"], out["prediction"])
     return jax.value_and_grad(loss_fn, has_aux=True)
@@ -453,6 +464,10 @@ def _masks(calls, slot_keep, seed):
     rng = np.random.default_rng(seed)
     return [rng.random(shape) < keep if abs(keep - slot_keep) < 1e-9
             else np.ones(shape, bool) for shape, keep in calls]
+
+
+def _flat(masks):
+    return np.concatenate([m.ravel() for m in masks])
 
 
 @pytest.fixture(scope="module")
@@ -471,20 +486,25 @@ def dropout_refs(tiny_spec):
         params, stats = (_wide(t) for t in random_trees(jax_template(sd0),
                                                         seed=70 + i))
         batch = _batch(80 + i)
+        sd = state_dict_from_jax(params, stats)
+        port_calls = _port_calls(name, spec, sd, batch)
+        calls = []
         with jax.enable_x64(True):
             jb = {k: jnp.asarray(v) for k, v in batch.items()}
             jm = jbuild(jmake_config(model=name, crop="relative_2d_max",
                                      fusion_modality="slo"), spec=spec,
                         remat=False, dtype=jnp.float64)
-            calls = _jax_calls(jm, params, stats, jb)
-            assert sorted({k for _, k in calls}) == sorted(
-                {round(1 - r, 9) for r in rates.values()})
-            masks = _masks(calls, -1.0, 0)
-            lowered[name] = jax.jit(_jax_grad_fn(jm, crit)).lower(
-                params, stats, jb, masks)
+            flat = np.ones(sum(n for n, _ in port_calls), bool)
+            lowered[name] = jax.jit(_jax_grad_fn(jm, crit, calls)).lower(
+                params, stats, jb, flat)
+        # the JAX trace drew its masks in the port's order, each of the
+        # port's size and keep probability
+        assert [(int(np.prod(s)), round(k, 9)) for s, k in calls] == \
+            port_calls
+        assert sorted({k for _, k in calls}) == sorted(
+            {round(1 - r, 9) for r in rates.values()})
         out[name] = dict(spec=spec, batch=batch, jb=jb, params=params,
-                         stats=stats, sd=state_dict_from_jax(params, stats),
-                         calls=calls, rates=rates)
+                         stats=stats, sd=sd, calls=calls, rates=rates)
     with concurrent.futures.ThreadPoolExecutor(len(lowered)) as pool:
         futures = {n: pool.submit(lo.compile, LEVEL_1)
                    for n, lo in lowered.items()}
@@ -527,7 +547,7 @@ def test_dropout_matches_jax_under_a_shared_mask(dropout_refs, name, slot):
     assert any(not m.all() for m in masks)
     with jax.enable_x64(True):
         (loss, (parts, new_stats, pred)), jgrads = ref["fn"](
-            ref["params"], ref["stats"], ref["jb"], masks)
+            ref["params"], ref["stats"], ref["jb"], _flat(masks))
 
     model = build_model(_cfg(name), spec=ref["spec"], dtype=torch.float64,
                         device="cpu").double()

@@ -10,7 +10,11 @@ running stats far from the identity) carried over by
 agree to max-abs-err <= 1e-4 * max|y|.
 
 Three JAX forward references, traced one after another and compiled side
-by side in threads (``test_torch_model.compile_ref``): ``FPNLateFusion``
+by side in threads (``test_torch_model.compile_ref``), their trees drawn
+on the late-fusion net's traced init (both trunks as JAX builds them) and
+on the name table (``test_torch_model.jax_template``) for the others,
+whose JAX forward raises on a missing or misshapen parameter:
+``FPNLateFusion``
 with ``output_features``, whose features hold both trunks (the 3D net
 without ``final1`` and the en-face net's features aligned to it), so
 ``FPN`` is held against ``final1`` of its 3D half, computed in numpy;
@@ -52,7 +56,7 @@ from multimodal_fusion_fpn_torch.train.step import make_train_step
 from multimodal_fusion_fpn_torch.weights import (init_state_dict,
                                                  state_dict_from_jax)
 
-from test_torch_model import compile_ref, random_trees
+from test_torch_model import compile_ref, jax_template, random_trees
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ZOO = ("FPN", "FPNRegression", "FPNClassification", "FPNHybridFusion",
@@ -112,8 +116,14 @@ def zoo(tiny_spec):
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         for i, (key, (name, feats)) in enumerate(REFS.items()):
             jm = jbuild(_cfg(name, feats), remat=False)
-            template = jax.eval_shape(lambda jm=jm: jm.init(
-                {"params": jax.random.PRNGKey(0)}, jb, train=False))
+            if key == "late":
+                # the one traced init: both trunks' trees as JAX builds
+                # them, against which the name table is held
+                template = jax.eval_shape(lambda jm=jm: jm.init(
+                    {"params": jax.random.PRNGKey(0)}, jb, train=False))
+            else:
+                template = jax_template(build_model(
+                    _cfg(name), device="cpu").state_dict())
             params, stats = random_trees(template, seed=40 + i)
             lowered = jax.jit(lambda p, s, b, jm=jm: jm.apply(
                 {"params": p, "batch_stats": s}, b, train=False)).lower(
@@ -328,8 +338,9 @@ def _fpn_grad(tiny_spec, pool):
     batch = _batch(8)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jm = jbuild(_cfg("FPN"), spec=tiny_spec, remat=False)
-    template = jax.eval_shape(lambda: jm.init(
-        {"params": jax.random.PRNGKey(0)}, jb, train=False))
+    template = jax_template(build_model(
+        _cfg("FPN"), spec=ArchSpec(tiny_spec.channels),
+        device="cpu").state_dict())
     params, stats = random_trees(template, seed=46)
     crit = _criterion(jlosses)
 
