@@ -307,7 +307,27 @@ Phases, each of which fails the run on any error:
    launches alone (8 per step and per eval forward), ``last.ckpt``; then
    five copies of that ``last.ckpt`` served by ``validate_ensemble.run``
    (bucketed, bf16): finite predictions, K5f alone, a second run skips.
-15. A ``kernels`` JSON line (per kernel: launches in its path's run, the
+15. The space axis (``space_phase``), with the kernels built above and
+   phase 5's weights: DP_RANKS processes sharing the card over gloo
+   (``dp_spawn``) at SPACE_MESH, the en-face width split in two (X = 64
+   per rank at the crop shapes), the hybrid at the ini widths.  Per
+   dtype (bf16 B=4, fp32 B=1) each rank runs one synced step with the
+   kernels, held against the single-process kernel step on the global
+   batch with phase 13's rules (the loss, the running stats and the batch
+   counts by ``compare_forward``; all gradients by cosine and norm ratio,
+   fp32 >= 0.9999 and within 1e-3; bf16 gradients, rounding noise at
+   these weights, as phase 5 holds them: against the fp32 single-process
+   step, within BF16_COS_MARGIN and BF16_RATIO_MARGIN of the bf16
+   single-process step's agreement); the same step with ``kernels=False``
+   held against it by the same rules; the
+   step with the planted fault ``zero_halo`` (every halo's neighbour
+   columns read zero) must fail that comparison; the ranks' states bit
+   for bit; each rank's launches printed, SPACE_LAUNCHED each above 0 and
+   SPACE_NOT_LAUNCHED (K7, K8) at 0.  The ms per step and the halo bytes
+   each rank sent in it are printed, labelled as two ranks on one card,
+   not a speed.  The nccl space path needs two cards and is untested on
+   one.
+16. A ``kernels`` JSON line (per kernel: launches in its path's run, the
    ensemble step for the eval instances, the train step for the training
    kernels, the bucketed serving run for K7 and K10's extents instance and
    the fused runs of phase 7 for K8, and beside them the entry point's
@@ -315,7 +335,8 @@ Phases, each of which fails the run on any error:
    kernel runs, ``launches_vrc`` (both paths) and ``launches_vrc_paths``
    (each), phase 12's bf16 run, ``launches_train_entry``, and each rank's
    run of phase 13 (c), ``launches_data_parallel``, and each run of
-   phase 14, ``launches_arch``; max-abs-err
+   phase 14, ``launches_arch``, and each rank's bf16 step of phase 15,
+   ``launches_space``; max-abs-err
    of its fp32 comparisons;
    per-step times summed over the bf16 B=4 calls (for the bucketed paths
    one bucketed ensemble step of 5 members, where the launches count the
@@ -575,6 +596,20 @@ is-batchnorm=false
 # train: its pools (K5f; the first-max backward is plain, as XLA's is in
 # the JAX package)
 NO_BN_PER_FORWARD = {"max_pool3d_cl": 8}
+# phase 15: the space axis, the en-face width split over DP_RANKS processes
+SPACE_MESH = "data=1,space=2"
+SPACE_CONFIGS = (("bf16", "bfloat16", 4), ("fp32", "float32", 1))
+# the kernels each rank's sharded train step must launch (K1, K1 stats, K2
+# with its stats, K3, K6, K4 and its K6, K5f, K5b, K10 and its wgrad), and
+# those it must not (K7, K8: off the sharded path, as in the JAX package)
+SPACE_LAUNCHED = ("fused_conv", "fused_conv_stats", "fused_conv_ky3_stats",
+                  "fused_conv_dgrad", "fused_conv_wgrad",
+                  "fused_conv_ky3_dgrad", "fused_conv_ky3_wgrad",
+                  "max_pool3d_cl", "max_pool3d_cl_bwd", "banded_conv",
+                  "banded_conv_wgrad")
+SPACE_NOT_LAUNCHED = ("fused_conv_dyn", "fused_conv_dyn_ky3",
+                      "banded_conv_dyn", "fused_chain", "fused_pair",
+                      "fused_chain_dyn", "fused_pair_dyn")
 
 
 
@@ -3419,7 +3454,7 @@ def dp_rank(rank, out, sd, argv):
     mesh = init_mesh("data=2", device="cuda")
     cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
                           fusion_modality="slo", number_of_outputs=1)
-    res = {"device": str(mesh.device), "backend": mesh.data.backend}
+    res = {"device": str(mesh.device), "backend": mesh.world.backend}
     for tag, dt, B in (("fp32", torch.float32, 2),
                        ("bf16", torch.bfloat16, 4)):
         tr = Trainer(cfg, dt, "cuda")
@@ -3752,6 +3787,193 @@ def arch_phase(card, configs, per_forward, per_step):
         launches["serve_entry"] = got
     emit({"phase": "arch_done", "ok": not failures,
           "seconds": time.time() - t0, "card": card})
+    return failures, launches
+
+
+def to_host(tree):
+    """A nested dict of tensors with every tensor copied to the host."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.cpu() if hasattr(tree, "cpu") else tree
+
+
+def zero_halo(t, h, group, axis):
+    """The planted fault of phase 15: halos whose neighbour columns read
+    zero (``comm._halo``'s signature)."""
+    shape = list(t.shape)
+    shape[axis] = h
+    return t.new_zeros(shape), t.new_zeros(shape)
+
+
+def space_step(tr, mesh, batch, kernels=True):
+    """One synced step of ``tr``'s model from its last ``reset`` on this
+    rank's shard of ``batch``: {aux, launches, grads, state (on the host),
+    halo bytes sent, ms}."""
+    import torch
+    from multimodal_fusion_fpn_torch import ops
+    from multimodal_fusion_fpn_torch.parallel import comm
+    from multimodal_fusion_fpn_torch.parallel.mesh import shard_batch
+    step = dp_step_fn(tr, mesh, True)
+    part = shard_batch(batch, mesh)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    comm.sent["halo_x"] = 0
+    t = time.perf_counter()
+    aux = step(tr.state, part, kernels=kernels)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    grads, state = tr.snapshot()
+    return {"aux": to_host(aux), "launches": ops.kernel_launches(), "ms": ms,
+            "halo_bytes": comm.sent["halo_x"],
+            "grads": to_host(grads), "state": to_host(state)}
+
+
+def space_rank(rank, out, sd):
+    """Phase 15 on one of DP_RANKS processes sharing the card over gloo
+    (:func:`dp_spawn`) at SPACE_MESH: per dtype the sharded step with the
+    kernels, again (timed), with ``kernels=False`` and with the planted
+    zero halo; on rank 0 the single-process step on the global batch, and
+    for bf16 also the fp32 one.  Writes ``space{rank}.pt`` in ``out``."""
+    import os
+    from unittest import mock
+    import torch
+    from multimodal_fusion_fpn_torch.parallel import comm
+    from multimodal_fusion_fpn_torch.parallel.mesh import init_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_mesh(SPACE_MESH, device="cuda")
+    cfg = SimpleNamespace(model="FPNHybridFusion", crop="relative_2d_max",
+                          fusion_modality="slo", number_of_outputs=1)
+    res = {"device": str(mesh.device), "backend": mesh.world.backend}
+
+    def single(dt, batch):
+        tr = Trainer(cfg, dt, "cuda")
+        tr.reset(sd)
+        aux = tr.step(batch)
+        grads, state = tr.snapshot()
+        return {"aux": to_host(aux), "grads": to_host(grads),
+                "state": to_host(state)}
+
+    for tag, dt_name, B in SPACE_CONFIGS:
+        dt = getattr(torch, dt_name)
+        tr = Trainer(cfg, dt, "cuda")
+        batch = make_batch(B, 21)
+        runs = {}
+        for name, kernels in (("kernels", True), ("timed", True),
+                              ("plain", False), ("fault", True)):
+            tr.reset(sd)
+            with (mock.patch.object(comm, "_halo", zero_halo)
+                  if name == "fault" else contextlib.nullcontext()):
+                runs[name] = space_step(tr, mesh, batch, kernels)
+        del tr
+        torch.cuda.empty_cache()
+        if rank == 0:
+            runs["single"] = single(dt, batch)
+            if dt != torch.float32:
+                runs["fp32"] = single(torch.float32, batch)
+            torch.cuda.empty_cache()
+        res[tag] = runs
+    torch.save(res, os.path.join(out, f"space{rank}.pt"))
+
+
+def space_agreement(got, ref, dtype, fp32=None):
+    """(ok, record): step ``got`` against step ``ref`` with phase 13's
+    rules: the loss, the running stats and the batch counts
+    (``compare_forward``); all gradients concatenated, in fp32 at cosine
+    >= 0.9999 and norm ratio within 1e-3.  In bf16, where the gradients at
+    these weights are mostly rounding noise (phase 5), they are held as
+    phase 5 holds them, against the fp32 single-process step ``fp32``:
+    ``got``'s cosine at least ``ref``'s minus BF16_COS_MARGIN, its norm
+    ratio no farther from 1 than ``ref``'s plus BF16_RATIO_MARGIN."""
+    import torch
+    ok_f, rec = compare_forward((got["aux"], None, got["state"]),
+                                (ref["aux"], None, ref["state"]), dtype)
+    names = list(ref["grads"])
+    cat = lambda run: _cat(run["grads"], names)  # noqa: E731
+    cos, ratio, _ = grad_agreement(cat(got), cat(ref))
+    rec.update(grad_cos=cos, grad_ratio=ratio)
+    if dtype == torch.float32:
+        ok_g = cos >= 0.9999 and abs(ratio - 1) <= 1e-3
+    else:
+        cg, rg, _ = grad_agreement(cat(got), cat(fp32))
+        cs, rs, _ = grad_agreement(cat(ref), cat(fp32))
+        rec.update(grad_cos_to_fp32=cg, grad_ratio_to_fp32=rg,
+                   ref_grad_cos_to_fp32=cs, ref_grad_ratio_to_fp32=rs)
+        ok_g = (cg >= cs - BF16_COS_MARGIN
+                and abs(rg - 1) <= abs(rs - 1) + BF16_RATIO_MARGIN)
+    return ok_f and ok_g, rec
+
+
+def space_phase(card, sd):
+    """Phase 15, the space axis on the card (module note): the failures and
+    each rank's launches of the bf16 sharded step."""
+    import os
+    import tempfile
+    import torch
+    t0 = time.time()
+    failures = []
+
+    def check(ok, rec, what):
+        emit(dict(rec, ok=bool(ok), seconds=time.time() - t0))
+        if not ok:
+            failures.append(f"space axis: {what}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t_spawn = time.time()
+        try:
+            dp_spawn(space_rank, os.path.join(tmp, "store"),
+                     (tmp, {k: v.cpu() for k, v in sd.items()}))
+        except Exception as exc:  # a rank's failure fails the phase
+            check(False, {"phase": "space_ranks", "error": str(exc)[-2000:]},
+                  "a rank failed")
+            return failures, [{} for _ in range(DP_RANKS)]
+        t_spawn = time.time() - t_spawn
+        ranks = [torch.load(os.path.join(tmp, f"space{r}.pt"),
+                            weights_only=False) for r in range(DP_RANKS)]
+    launches = []
+    for tag, dt_name, B in SPACE_CONFIGS:
+        dt = getattr(torch, dt_name)
+        single, fp32 = ranks[0][tag]["single"], ranks[0][tag].get("fp32")
+        runs = [res[tag] for res in ranks]
+        rec = {"phase": "space_step", "mesh": SPACE_MESH, "backend": "gloo",
+               "ranks": DP_RANKS, "devices": [r["device"] for r in ranks],
+               "dtype": dt_name, "batch": B, "card": card}
+        ok = True
+        for r, run in enumerate(runs):
+            o_k, rec[f"rank{r}_vs_single"] = space_agreement(
+                run["kernels"], single, dt, fp32)
+            o_p, rec[f"rank{r}_plain_vs_kernels"] = space_agreement(
+                run["plain"], run["kernels"], dt, fp32)
+            o_f, rec[f"rank{r}_zero_halo_vs_single"] = space_agreement(
+                run["fault"], single, dt, fp32)
+            ok = ok and o_k and o_p and not o_f
+        diff = same_state((runs[0]["kernels"]["state"],),
+                          (runs[1]["kernels"]["state"],))
+        rec["ranks_bit_identical"] = diff is None
+        rec["first_difference"] = diff
+        counts = [{k: run["kernels"]["launches"].get(k, 0) for k in KERNELS}
+                  for run in runs]
+        rec["launches_per_rank"] = counts
+        launched = all(c[k] > 0 for c in counts for k in SPACE_LAUNCHED)
+        idle = all(c[k] == 0 for c in counts for k in SPACE_NOT_LAUNCHED)
+        rec["required_launched"], rec["off_path_idle"] = launched, idle
+        check(ok and diff is None and launched and idle, rec,
+              f"{tag} B={B}: against the single-process step, plain, the "
+              "planted zero halo, the ranks or the launches")
+        emit({"phase": "space_rate", "dtype": dt_name, "batch": B,
+              "label": "two ranks on one card, not a speed",
+              "ms_per_step": [run["timed"]["ms"] for run in runs],
+              "ms_per_step_plain": [run["plain"]["ms"] for run in runs],
+              "halo_bytes_per_step": [run["timed"]["halo_bytes"]
+                                      for run in runs],
+              "card": card})
+        if tag == "bf16":
+            launches = counts
+    emit({"phase": "space_done", "ok": not failures,
+          "seconds": time.time() - t0, "seconds_spawn": t_spawn,
+          "note": "gloo ranks sharing one card; the nccl space path needs "
+                  "two cards and is untested on one",
+          "card": card})
     return failures, launches
 
 
@@ -4223,7 +4445,11 @@ def main() -> int:
         card, configs, shapes["bf16_B4"]["launches"], main_launches["train"])
     failures += arch_failures
 
-    # --- 15. summary ------------------------------------------------------
+    # --- 15. the space axis ----------------------------------------------
+    space_failures, space_launches = space_phase(card, sds[0])
+    failures += space_failures
+
+    # --- 16. summary ------------------------------------------------------
     summary = []
     for name, (source, replaces, path) in KERNELS.items():
         prefix = RECORD_PREFIX.get(path, "")
@@ -4248,6 +4474,7 @@ def main() -> int:
             "launches_data_parallel": [r.get(name, 0) for r in dp_launches],
             "launches_arch": {run: v.get(name, 0)
                               for run, v in arch_launches.items()},
+            "launches_space": [r.get(name, 0) for r in space_launches],
             "launches_vrc": sum(v[name] for v in vrc_launches.values()),
             "launches_vrc_paths": {p: v[name]
                                    for p, v in vrc_launches.items()},

@@ -2,17 +2,17 @@
 functions over dicts of tensors in the reference layout, computed in the
 prediction's dtype as the JAX ones are.
 
-Under synced data parallelism (``parallel.comm.synced``) each loss is the
-global batch's on every rank: the Dice sums over the batch are all-reduced
-before the epsilons and the ratio, as on one device; the BCE is the mean
-of the shards' means.  Both reductions are differentiable."""
+On a process mesh (``parallel.comm.sharded``: synced data parallelism,
+the space axis or both) each loss is the global batch's on every rank: the
+Dice sums over the batch and the width are all-reduced over the total
+group before the epsilons and the ratio, as on one device; the BCE is the
+mean of the equal shards' means.  Both reductions are differentiable."""
 
 from typing import Callable, Dict, Optional
 
 import torch
 
-from multimodal_fusion_fpn_torch.parallel.comm import (all_reduce_sum,
-                                                      sync_group)
+from multimodal_fusion_fpn_torch.parallel.comm import all_reduce_sum, shards
 
 
 def _clamped_log(v: torch.Tensor, log, at: float) -> torch.Tensor:
@@ -40,7 +40,7 @@ def bce_loss(output_key: str = "prediction", target_key: str = "mask"):
         log_p = _clamped_log(pred, torch.log, 0.0)
         log_1p = _clamped_log(pred, lambda v: torch.log1p(-v), 1.0)
         loss = -torch.mean(gt * log_p + (1.0 - gt) * log_1p)
-        group = sync_group()
+        group = shards().total
         if group is not None:
             # the mean of the equal shards' means
             loss = all_reduce_sum(loss, group) / group.size
@@ -65,7 +65,7 @@ def dice_loss_joint(output_key: str = "prediction",
             gt = (gt > threshold).to(pred.dtype)
         intersection = (pred * gt).sum(dim=(0, 2))
         union = (pred ** 2 + gt).sum(dim=(0, 2))
-        group = sync_group()
+        group = shards().total
         if group is not None:
             intersection, union = all_reduce_sum(
                 torch.stack([intersection, union]), group).unbind(0)

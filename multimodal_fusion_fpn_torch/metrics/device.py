@@ -16,9 +16,16 @@ an exact separable min,
 two dense reductions taken ``chunk`` rows at a time, so memory stays at
 chunk*W*W; mins do not depend on the order, so the chunking changes no
 value.  fp32 throughout, as the JAX function.
+
+Under the space axis (``parallel.comm.sharded``) the hard Dice's sums and
+the BCE's mean run over the space group: each sample's value is that of
+its whole width.
 """
 
 import torch
+
+from multimodal_fusion_fpn_torch.parallel.comm import (all_reduce_sum,
+                                                      space_group)
 
 
 def dice_per_sample(pred: torch.Tensor, gt: torch.Tensor,
@@ -30,6 +37,9 @@ def dice_per_sample(pred: torch.Tensor, gt: torch.Tensor,
     g = (gt[:, slice_idx] > threshold).float().reshape(n, -1)
     num = (p * g).sum(dim=1)
     den = (p + g).sum(dim=1)
+    group = space_group()
+    if group is not None:
+        num, den = all_reduce_sum(torch.stack([num, den]), group).unbind(0)
     return torch.where(den == 0.0, torch.ones_like(den),
                        2.0 * num / torch.clamp(den, min=1.0))
 
@@ -41,7 +51,12 @@ def bce_scalar(pred: torch.Tensor, gt: torch.Tensor,
     g = gt[:, slice_idx].reshape(-1).to(p.dtype)
     log_p = torch.clamp(torch.log(p), min=-100.0)
     log_1p = torch.clamp(torch.log1p(-p), min=-100.0)
-    return -torch.mean(g * log_p + (1.0 - g) * log_1p)
+    bce = -torch.mean(g * log_p + (1.0 - g) * log_1p)
+    group = space_group()
+    if group is not None:
+        # the mean of the equal shards' means
+        bce = all_reduce_sum(bce, group) / group.size
+    return bce
 
 
 _BIG = 1e12

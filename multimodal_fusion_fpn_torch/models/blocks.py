@@ -37,10 +37,11 @@ variance ``E[y^2] - E[y]^2`` of the conv output y, both from fp32 sums:
 the kernel's stats epilogue for a fused conv, plain sums otherwise.  It
 updates ``running_mean``/``running_var`` with momentum 0.1 (flax's 0.9),
 the var UNBIASED (x n/(n-1)) as torch's BatchNorm3d does, and counts
-``num_batches_tracked``.  Under synced data parallelism
-(``parallel.comm.synced``) the sums and the count are the global batch's:
-the sums are all-reduced over the data group, differentiably, before the
-mean and var are formed, in every stage alike.
+``num_batches_tracked``.  On a process mesh (``parallel.comm.sharded``)
+the sums and the count are the global batch's: the sums are all-reduced,
+differentiably, over the space group (the replica's whole width) or, with
+synced data parallelism, over the world, before the mean and var are
+formed, in every stage alike.
 
 Exact shape bucketing (eval only, ``blocks.py:168-236,700-725,1135-1215``):
 ``forward`` takes the true extents ``ext`` = (y, x, z) of its input inside
@@ -83,9 +84,10 @@ probability 1 - p and scaling the kept ones by 1 / (1 - p), as flax's
 ``nn.Dropout``; in eval it is the identity.  The masks come from the
 ``torch.Generator`` that :func:`dropout_generator` installs (the train step
 does, from its ``generator`` argument); a training forward through a
-dropout block without one raises.  Under synced data parallelism the
-mask is drawn for the global batch and each rank keeps its rows, as one
-process draws it for the whole batch.  A stage with dropout > 0 leaves the
+dropout block without one raises.  On a process mesh the mask is drawn
+for the global batch (the global rows under synced data parallelism, the
+whole width under the space axis) and each rank keeps its rows and
+columns, as one process draws it for the whole batch.  A stage with dropout > 0 leaves the
 kernels in eval and in training, as the JAX package takes it off its fused
 lowering (``fused_stage_bs``, ``blocks.py:262``): its convs run the plain
 version, and the pool after it the first-max backward (``reduce_window``
@@ -99,6 +101,23 @@ one kernel (``ops.fused_block.fused_pair``), "chain" the whole block
 in eval, where every BatchNorm affine is a constant, and only on the 3D
 blocks of the fused stages; with ``kernels`` False they run their plain
 versions (``ConvX._fusion``).
+
+The space axis (``parallel.comm.sharded`` with a space group): each rank
+holds its columns of the width, X of a 3D block and W (the z axis of the
+singleton-X view) of a 2D one, and every conv reads its neighbours'
+columns through a halo exchange (``parallel.comm.halo_x``), as the JAX
+package routes it (``ConvX._conv``).  The 3D fused convs keep the kernels
+on each shard: a conv with kX = 3 (K1, K10) computes its prologue in torch,
+exchanges the activated columns, runs the kernel with an identity
+prologue on the (X/M + 2)-wide slab and crops it (``_fused_op_sharded``,
+``fused_conv.py:877-890``); the BatchNorm sums then come from the cropped
+output (``_stats_of``, ``:1204-1209``); a conv with kX = 1 (K2, the
+strided cascade, the 1x1x1 convs) needs no halo and keeps its prologue
+(``:892-897``).  The 2D stages run per op (cuDNN), as a space mesh takes
+the JAX package's fused 2D stages off (``blocks.py:823-825,1148-1152``),
+and so does every other conv: a halo of k // 2 and no padding along the
+width.  The zoo models refuse extents and block fusion under the space
+axis (``models.zoo``).
 """
 
 
@@ -128,7 +147,8 @@ from multimodal_fusion_fpn_torch.ops.fused_conv import \
     takes as fused_conv_takes
 from multimodal_fusion_fpn_torch.ops.upsample import upsample_nearest
 from multimodal_fusion_fpn_torch.parallel.comm import (all_reduce_sum,
-                                                      sync_group)
+                                                      halo_x, shards,
+                                                      space_group)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1     # torch's convention; flax's 0.9 keeps the running value
@@ -274,11 +294,11 @@ class BNFold(nn.Module):
         else:
             s1, s2 = channel_sums(y) if sums is None else sums
             n = y.numel() // y.shape[-1]
-            group = sync_group()
+            group = shards().total
             if group is not None:
-                # synced data parallelism: the global batch's sums; the
-                # shards are equal (parallel.mesh.shard_batch), so the
-                # global count is n times the group's size
+                # a process mesh: the global batch's sums; the shards are
+                # equal (parallel.mesh.shard_batch), so the global count
+                # is n times the group's size
                 s1, s2 = all_reduce_sum(torch.stack([s1, s2]),
                                         group).unbind(0)
                 n *= group.size
@@ -319,10 +339,11 @@ def dropout_mask(shape: Tuple[int, ...], keep_prob: float,
                       device=generator.device) < keep_prob
 
 
-def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, training: bool,
+            col_axis: int = 2) -> torch.Tensor:
     """flax ``nn.Dropout(p)``: in training each element kept with
     probability 1 - p and scaled by 1 / (1 - p), the others 0; the identity
-    in eval or at p = 0."""
+    in eval or at p = 0.  ``col_axis``: the axis the space axis splits."""
     if not training or p <= 0.0:
         return x
     if not _DROPOUT_GENERATORS:
@@ -331,16 +352,17 @@ def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
             "train step, or run the forward inside "
             "blocks.dropout_generator(...)")
     keep_prob = 1.0 - p
-    group = sync_group()
-    if group is None:
-        keep = dropout_mask(tuple(x.shape), keep_prob,
-                            _DROPOUT_GENERATORS[-1])
-    else:
-        # synced data parallelism: the global batch's mask, this rank's rows
-        b = x.shape[0]
-        keep = dropout_mask((b * group.size, *x.shape[1:]), keep_prob,
-                            _DROPOUT_GENERATORS[-1])[
-                                group.rank * b:(group.rank + 1) * b]
+    # on a process mesh the global batch's mask, this rank's rows and
+    # columns of it
+    shape, index = list(x.shape), [slice(None)] * x.dim()
+    layout = shards()
+    for axis, group in ((0, layout.rows), (col_axis, layout.cols)):
+        if group is not None:
+            n = x.shape[axis]
+            shape[axis] = n * group.size
+            index[axis] = slice(group.rank * n, (group.rank + 1) * n)
+    keep = dropout_mask(tuple(shape), keep_prob,
+                        _DROPOUT_GENERATORS[-1])[tuple(index)]
     return torch.where(keep.to(x.device), x / keep_prob, torch.zeros(
         (), dtype=x.dtype, device=x.device))
 
@@ -393,6 +415,13 @@ def _affine(layer: nn.ModuleList, dtype: torch.dtype,
         bias.to(dtype)
 
 
+def _crop(y: torch.Tensor, h: int, axis: int) -> torch.Tensor:
+    """``y`` without ``h`` columns at each end of ``axis``, contiguous."""
+    if not h:
+        return y
+    return y.narrow(axis, h, y.shape[axis] - 2 * h).contiguous()
+
+
 class ConvX(nn.Module):
     """Residual conv block: the convs with BN+ReLU between them, BN after
     the last, identity or 1x1(+BN) residual, final ReLU; without BatchNorm
@@ -427,13 +456,25 @@ class ConvX(nn.Module):
         self.fused = fused
         self.dropout = float(dropout)
 
+    @property
+    def _col_axis(self) -> int:
+        """The axis the space axis splits: X of a 3D block's (B, Y, X, Z,
+        C), W of a 2D block's singleton-X view (B, H, 1, W, C)."""
+        return 3 if self.convBlock[0][0].weight.dim() == 4 else 2
+
     def _conv(self, x, s, b, w, relu, stride_z, kernels, ext):
         """-> (y, sums): in training a fused conv also returns the fp32
         (sum y, sum y*y) of its stats epilogue; otherwise sums is None.
-        ``ext``: the true extents of x (module note)."""
+        ``ext``: the true extents of x (module note).  Under the space
+        axis the conv reads ``h`` halo columns on each side (module
+        note)."""
         ci, co, taps = w.shape[3], w.shape[4], tuple(w.shape[:3])
         dyn = None if ext is None else _full(ext, x)
-        if kernels and self.fused and self.padding == "same":
+        cols, axis = space_group(), self._col_axis
+        h = 0 if cols is None else w.shape[axis - 1] // 2
+        # a space mesh runs the 2D stages per op (blocks.py:823-825)
+        if (kernels and self.fused and self.padding == "same"
+                and not (cols is not None and axis == 3)):
             # which gradients the backward computes, if it runs
             grad = torch.is_grad_enabled()
             x_grad = grad and any(t is not None and t.requires_grad
@@ -441,6 +482,12 @@ class ConvX(nn.Module):
             backward = x_grad or (grad and w.requires_grad)
             if ci >= 8 and fused_conv_takes(ci, co, taps, stride_z, backward,
                                             x.dtype):
+                if h:
+                    # the activated columns exchanged, the kernel with an
+                    # identity prologue on the slab (fused_conv.py:877-890)
+                    t = halo_x(affine_relu(x, s, b, relu), h, cols, axis)
+                    return _crop(fused_conv(t, None, None, w, False,
+                                            stride_z), h, axis), None
                 if self.training:
                     y, s1, s2 = fused_conv(x, s, b, w, relu, stride_z,
                                            with_stats=True)
@@ -449,11 +496,14 @@ class ConvX(nn.Module):
                                   dyn_extents=dyn), None
             if ci < 8 and banded_conv_takes(ci, co, taps, stride_z, x_grad,
                                             x.dtype):
-                return banded_conv(affine_relu(x, s, b, relu), w, dyn), None
-        pad = ((0, 0, 0) if self.padding == "valid"
-               else tuple(k // 2 for k in w.shape[:3]))
+                t = halo_x(affine_relu(x, s, b, relu), h, cols, axis)
+                return _crop(banded_conv(t, w, dyn), h, axis), None
+        pad = [0, 0, 0] if self.padding == "valid" else [k // 2
+                                                        for k in taps]
+        pad[axis - 1] -= h
         t = mask_extents(affine_relu(x, s, b, relu), ext)
-        return conv3d_cl(t, w, (1, 1, stride_z), pad), None
+        return conv3d_cl(halo_x(t, h, cols, axis), w, (1, 1, stride_z),
+                         pad), None
 
     def out_extents(self, ext: Extents) -> Extents:
         """The true extents of the block's output for input extents
@@ -576,7 +626,7 @@ class ConvX(nn.Module):
             i += 1
         out = self._residual(cur * s + b, x, kernels, ext)
         return dropout(mask_extents(torch.relu(out), e), self.dropout,
-                       self.training)
+                       self.training, self._col_axis)
 
 
 class EncoderStage(nn.ModuleList):

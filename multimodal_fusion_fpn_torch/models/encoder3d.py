@@ -18,6 +18,16 @@ extents: a window == stride pool floors them (``pooled_ext``,
 ``encoder3d.py:29-40``), and the next conv's prologue masks the one cell
 that straddles a true extent.  The padded extents are bucket multiples, so
 every window divides them and the pool kernel runs unchanged.
+
+Under the space axis every pool runs on this rank's columns: stride ==
+window, so no window straddles two shards where each shard's width is a
+multiple of the window (``pool.py:208-216``; ``parallel.mesh.
+check_widths`` holds the widths to it).  The tie rule stays the stage's,
+so the sharded step is the single-process step on the global batch.  (The
+JAX package runs its 2D stages per op under a space mesh, with XLA's
+first-max pool, ``encoder3d.py:161-166``: at a window whose maximum is
+tied and not 0, which the tiny widths give where a block's input is 0 over
+its receptive field, its gradient differs from the one without a mesh.)
 """
 
 from typing import Optional, Sequence

@@ -36,6 +36,7 @@ from multimodal_fusion_fpn_torch.ops.dynamic_extent import (
     adaptive_max_pool_dynamic, linear_resize_dynamic)
 from multimodal_fusion_fpn_torch.ops.interpolate import linear_resize
 from multimodal_fusion_fpn_torch.ops.pooling import adaptive_max_pool
+from multimodal_fusion_fpn_torch.parallel.comm import across_cols
 
 POOLS_2D = ((1, 2), (1, 2), (2, 2), (2, 2))
 
@@ -61,10 +62,12 @@ def align_2d_skip(skip2d: torch.Tensor, target_shape,
         if interpolate is not None:
             raise ValueError(f"Unknown interpolate mode: {interpolate}")
         return x
+    # under the space axis W (axis 2) is split: a resize along it runs on
+    # the gathered width (comm.across_cols)
     if interpolate == "2d":
-        return linear_resize(x, target_shape, axes=(1, 2, 3))
+        return across_cols(linear_resize, x, target_shape, (1, 2, 3), 2)
     if interpolate == "2d_max":
-        return adaptive_max_pool(x, target_shape, axes=(1, 2, 3))
+        return across_cols(adaptive_max_pool, x, target_shape, (1, 2, 3), 2)
     if interpolate is not None:
         raise ValueError(f"Unknown interpolate mode: {interpolate}")
     return x

@@ -51,6 +51,9 @@ from multimodal_fusion_fpn_torch.ops.dynamic_extent import \
     linear_resize_dynamic
 from multimodal_fusion_fpn_torch.ops.fused_conv import conv3d_cl
 from multimodal_fusion_fpn_torch.ops.interpolate import linear_resize
+from multimodal_fusion_fpn_torch.parallel.comm import (across_cols,
+                                                      all_reduce_sum,
+                                                      space_group)
 from multimodal_fusion_fpn_torch.registry import get_factory_adder
 
 add_class, model_factory = get_factory_adder()
@@ -81,6 +84,22 @@ def bucket_extents(batch):
     if batch.get("__valid_enface__") is not None:
         ext2d = tuple(_ints(batch["__valid_enface__"]))
     return ext3d, ext2d
+
+
+def refuse_under_space(batch, block_fusion: Optional[str]) -> None:
+    """Under the space axis, raise ValueError on the bucketing extents and
+    on ``block_fusion``: the JAX package asserts against its extents
+    kernels under a mesh (``fused_conv.py:1228,1359,1585,1787``) and takes
+    its block fusion off (``blocks.py:547-567``); neither is on the
+    sharded training path."""
+    if space_group() is None:
+        return
+    if any(batch.get(k) is not None
+           for k in ("__valid_image__", "__valid_enface__")):
+        raise ValueError("bucketing extents under the space axis")
+    if block_fusion is not None:
+        raise ValueError(f"block_fusion {block_fusion!r} under the space "
+                         "axis")
 
 
 class _ZooModel(nn.Module):
@@ -115,6 +134,7 @@ class FPN(_ZooModel):
 
     def forward(self, batch, kernels: bool = True,
                 block_fusion: Optional[str] = None):
+        refuse_under_space(batch, block_fusion)
         ext3d, _ = bucket_extents(batch)
         seg = self.resensnet(self.volume(batch), kernels, ext3d,
                              block_fusion)
@@ -142,11 +162,17 @@ class FPNClassification(_ZooModel):
 
     def forward(self, batch, kernels: bool = True,
                 block_fusion: Optional[str] = None):
+        refuse_under_space(batch, block_fusion)
         feats = self.resensnet(self.volume(batch), kernels, None,
                                block_fusion)
         pred = conv3d_cl(feats, self.one_one.logical(feats.dtype), (1, 1, 1),
                          (0, 0, 0))
-        pred = pred.mean(dim=(1, 2, 3), dtype=torch.float32).to(pred.dtype)
+        mean = pred.mean(dim=(1, 2, 3), dtype=torch.float32)
+        group = space_group()
+        if group is not None:
+            # the mean of the space group's equal shards' means
+            mean = all_reduce_sum(mean, group) / group.size
+        pred = mean.to(pred.dtype)
         return {"prediction": torch.softmax(pred, dim=-1)}
 
 
@@ -166,6 +192,7 @@ class FPNHybridFusion(_ZooModel):
 
     def forward(self, batch, kernels: bool = True,
                 block_fusion: Optional[str] = None):
+        refuse_under_space(batch, block_fusion)
         oct, enface = self.volume(batch), self.enface(batch)
         ext3d, ext2d = bucket_extents(batch)
         if ext3d is not None or ext2d is not None:
@@ -200,6 +227,7 @@ class FPN2D(_ZooModel):
 
     def forward(self, batch, kernels: bool = True,
                 block_fusion: Optional[str] = None):
+        refuse_under_space(batch, block_fusion)
         _, ext2d = bucket_extents(batch)
         seg = torch.sigmoid(seg_from_device(
             self.resensnet(self.enface(batch), kernels, ext2d)))
@@ -209,7 +237,9 @@ class FPN2D(_ZooModel):
             seg = linear_resize_dynamic(seg, (ext2d[0], None, ext2d[1]), tgt,
                                         axes=(2, 3, 4), out_pads=tgt)
         elif mask is not None and seg.shape != mask.shape:
-            seg = linear_resize(seg, mask.shape[2:], axes=(2, 3, 4))
+            # W (axis 4) is split under the space axis
+            seg = across_cols(linear_resize, seg, mask.shape[2:], (2, 3, 4),
+                              4)
         return {"prediction": seg}
 
 
@@ -238,6 +268,7 @@ class FPNLateFusion(_ZooModel):
 
     def forward(self, batch, kernels: bool = True,
                 block_fusion: Optional[str] = None):
+        refuse_under_space(batch, block_fusion)
         ext3d, ext2d = bucket_extents(batch)
         f3 = self.resensnet3d(self.volume(batch), kernels, ext3d,
                               block_fusion)

@@ -1,30 +1,32 @@
-"""The process mesh of data parallelism: the twin of
-``multimodal_fusion_fpn_tpu/parallel/mesh.py``.
+"""The process mesh: the twin of ``multimodal_fusion_fpn_tpu/parallel/
+mesh.py``.
 
 The original project's only parallelism is Lightning's ``strategy='dp'``.
-The JAX package puts it on a ``jax.sharding.Mesh`` of devices; here each
-rank of the mesh is one process (``torchrun --nproc-per-node N``), and
-the ``data`` axis is the process group its collectives run over
-(:mod:`.comm`).  The ``space`` axis (en-face width sharding with halo
-exchanges) is a slice of its own: ``space=M`` with M > 1 raises, and
-``space=1`` is a no-op, as ``fused_conv.set_space_sharding`` takes it in
-the JAX package.
+The JAX package puts it on a ``jax.sharding.Mesh`` of devices with a
+``data`` axis (the batch) and a ``space`` axis (the en-face width X); here
+each rank of the mesh is one process (``torchrun --nproc-per-node N*M``).
+Rank r sits at data index ``r // M`` and space index ``r % M``, the JAX
+package's device order (``make_mesh`` reshapes the devices to (data,
+space), ``mesh.py:44-50``).  Its groups (:mod:`.comm`): ``data``, the
+ranks that share its space index; ``space``, the ranks that share its data
+index; ``world``, all of them.  Every rank makes every group, in the same
+order.
 
-Mesh spec strings are the JAX package's: ``"data=4"``, ``"data=4,space=1"``.
+Mesh spec strings are the JAX package's: ``"data=4"``, ``"data=2,space=2"``.
 
 Each rank loads the same global batch from the same seeded loader and
-keeps its rows of it (:func:`shard_batch`), so the data order is the one
-process's.  On the card rank r uses ``cuda:LOCAL_RANK``; under ``gloo``
-several ranks may share a card (``cuda:LOCAL_RANK % device_count``),
-under ``nccl`` they may not: such ranks join a gloo group before
-:func:`init_mesh`, as the tests and ``chip_smoke.py`` do.
+keeps its rows and its X columns of it (:func:`shard_batch`), so the data
+order is the one process's.  On the card rank r uses ``cuda:LOCAL_RANK``;
+under ``gloo`` several ranks may share a card (``cuda:LOCAL_RANK %
+device_count``), under ``nccl`` they may not: such ranks join a gloo group
+before :func:`init_mesh`, as the tests and ``chip_smoke.py`` do.
 """
 
 import dataclasses
 import datetime
 import os
 import re
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,19 +61,17 @@ def parse_mesh_spec(spec: Optional[str], n_devices: int) -> Dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The axis sizes, this process's rank on the data axis and the data
-    group, and the device this rank computes on."""
+    """The axis sizes, this process's groups (module note) and the device
+    this rank computes on."""
     axes: Dict[str, int]
+    world: Group
     data: Group
+    space: Group
     device: torch.device
 
     @property
     def rank(self) -> int:
-        return self.data.rank
-
-    @property
-    def size(self) -> int:
-        return self.data.size
+        return self.world.rank
 
 
 def _check_axes(axes: Dict[str, int]) -> None:
@@ -79,24 +79,52 @@ def _check_axes(axes: Dict[str, int]) -> None:
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)}: the axes are "
                          "'data' and 'space'")
-    if axes.get("space", 1) > 1:
-        raise NotImplementedError(
-            f"space={axes['space']}: the space axis (en-face width "
-            "sharding with halo exchanges) is the next slice of the port "
-            "(ROADMAP Queue 1, the space axis); use data=N")
+
+
+def _group(pg, members: Sequence[int], world: Group) -> Group:
+    """The Group of ``members`` (world ranks) that this rank belongs to."""
+    return Group(pg=pg, rank=members.index(world.rank), size=len(members),
+                 backend=world.backend,
+                 ranks=tuple(world.ranks[m] for m in members))
 
 
 def make_mesh(spec: Optional[str], group=None,
               device="cpu") -> Mesh:
     """The mesh of ``spec`` over the initialised process group ``group``
-    (None: the default group), computing on ``device``."""
+    (None: the default group), computing on ``device``.  An axis of size
+    1 gets a group of this rank alone, an axis as large as the mesh the
+    mesh's group; with both axes above 1 every rank makes the groups of
+    both axes (``dist.new_group``, in one order), and ``group`` must be
+    the default group."""
     pg = dist.group.WORLD if group is None else group
     size = dist.get_world_size(pg)
     axes = parse_mesh_spec(spec, size)
     _check_axes(axes)
-    data = Group(pg=group, rank=dist.get_rank(pg), size=size,
-                 backend=dist.get_backend(pg))
-    return Mesh(axes=axes, data=data, device=torch.device(device))
+    world = Group(pg=group, rank=dist.get_rank(pg), size=size,
+                  backend=dist.get_backend(pg),
+                  ranks=tuple(dist.get_process_group_ranks(pg)))
+    n, m = axes.get("data", 1), axes.get("space", 1)
+    d, s = divmod(world.rank, m)
+    data_members = {i: list(range(i, size, m)) for i in range(m)}
+    space_members = {i: list(range(i * m, (i + 1) * m)) for i in range(n)}
+    if n > 1 and m > 1:
+        if group is not None:
+            raise ValueError(f"mesh {axes}: both axes above 1 need the "
+                             "default process group")
+        made = {(axis, i): dist.new_group(v)
+                for axis, members in (("data", data_members),
+                                      ("space", space_members))
+                for i, v in members.items()}
+        data_pg, space_pg = made[("data", s)], made[("space", d)]
+    else:
+        data_pg = group if n > 1 else None
+        space_pg = group if m > 1 else None
+    data = (_group(data_pg, data_members[s], world) if n > 1
+            else _group(None, [world.rank], world))
+    space = (_group(space_pg, space_members[d], world) if m > 1
+             else _group(None, [world.rank], world))
+    return Mesh(axes=axes, world=world, data=data, space=space,
+                device=torch.device(device))
 
 
 # Rank 0 validates alone while the other ranks wait in one broadcast
@@ -113,6 +141,9 @@ def init_mesh(spec: Optional[str], device="cuda") -> Mesh:
     ``cuda:LOCAL_RANK`` (module note)."""
     if spec:
         _check_axes(_spec_axes(spec))
+        if not dist.is_initialized():
+            # a mesh the processes cannot fill is refused before a group
+            parse_mesh_spec(spec, int(os.environ.get("WORLD_SIZE", 1)))
     on_cpu = torch.device(device).type == "cpu"
     backend = (dist.get_backend() if dist.is_initialized()
                else "gloo" if on_cpu else "nccl")
@@ -138,24 +169,61 @@ def init_mesh(spec: Optional[str], device="cuda") -> Mesh:
     return make_mesh(spec, device=dev)
 
 
+def _part(v, axis: int, group: Group, what: str):
+    """Rank ``group.rank``'s equal part of ``v`` along ``axis``."""
+    n = v.shape[axis]
+    if n % group.size:
+        raise ValueError(f"shard_batch: {what} {n}, which "
+                         f"{group.size} ranks do not divide")
+    k = n // group.size
+    index = [slice(None)] * v.ndim
+    index[axis] = slice(group.rank * k, (group.rank + 1) * k)
+    return v[tuple(index)]
+
+
 def shard_batch(batch: Dict, mesh: Mesh, stacked: bool = False) -> Dict:
-    """This rank's part of a global batch (``mesh.py:77-90``): a model
-    array (5D, or 6D with ``stacked``, whose axis 0 is the micro-batch)
-    keeps rows ``[r*B/N, (r+1)*B/N)`` of its batch axis; other values stay
-    whole.  Raises when N does not divide B."""
+    """This rank's part of a global batch (``batch_sharding``,
+    ``mesh.py:53-90``): a model array (5D, or 6D with ``stacked``, whose
+    axis 0 is the micro-batch) keeps rows ``[d*B/N, (d+1)*B/N)`` of its
+    batch axis and columns ``[s*W/M, (s+1)*W/M)`` of its last axis, the
+    en-face width of the reference layout ((B, 1, D, H, W), (B, 1, H_ef,
+    1, W)); other values stay whole.  Raises when N does not divide B or M
+    does not divide W."""
     model_ndim, axis = (6, 1) if stacked else (5, 0)
-    n, r = mesh.size, mesh.rank
     out = {}
     for k, v in batch.items():
         if getattr(v, "ndim", None) == model_ndim:
-            b = v.shape[axis]
-            if b % n:
-                raise ValueError(f"shard_batch: {k} has batch {b}, which "
-                                 f"data={n} does not divide")
-            rows = slice(r * (b // n), (r + 1) * (b // n))
-            v = v[rows] if axis == 0 else v[:, rows]
+            v = _part(v, axis, mesh.data, f"{k} has batch")
+            v = _part(v, model_ndim - 1, mesh.space, f"{k} has width")
         out[k] = v
     return out
+
+
+def check_widths(batch: Dict, mesh: Mesh, windows: Sequence[int],
+                 keys: Sequence[str]) -> None:
+    """Raise ValueError, naming the level and the widths, where the
+    en-face width of an input in ``keys`` does not split over the space
+    axis at every level of a pyramid whose pools have the X windows
+    ``windows``: each rank pools its own columns (stride == window, the
+    JAX package's ``pool.py:208-216``), so every level's width must be a
+    multiple of M times the pool's window, and the deepest level's of M.
+    (The JAX package pads such widths through GSPMD; the port does not.)"""
+    m = mesh.space.size
+    if m == 1:
+        return
+    for k in keys:
+        v = batch.get(k)
+        if getattr(v, "ndim", 0) < 5:
+            continue
+        w = v.shape[-1] * m
+        for level, win in enumerate(list(windows) + [1]):
+            if w % (m * win):
+                raise ValueError(
+                    f"space={m}: {k} is {v.shape[-1] * m} wide, so level "
+                    f"{level + 1} is {w} wide, which is not a multiple of "
+                    f"space {m} x its pool window {win}; the widths of "
+                    f"every level must split evenly")
+            w //= win
 
 
 def shard_state(model: torch.nn.Module, optimizer, mesh: Mesh) -> None:
@@ -163,4 +231,4 @@ def shard_state(model: torch.nn.Module, optimizer, mesh: Mesh) -> None:
     tensors = list(model.parameters()) + list(model.buffers())
     for st in optimizer.state.values():
         tensors += [v for v in st.values() if torch.is_tensor(v)]
-    broadcast_(tensors, mesh.data)
+    broadcast_(tensors, mesh.world)

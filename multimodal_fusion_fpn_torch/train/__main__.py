@@ -22,22 +22,27 @@ writes the top-5 ``epoch=*.ckpt``, ``curves.json``, ``curves.svg``,
 removes ``resume.ckpt``.  ``--precision bf16`` computes in bf16 with fp32
 weights.
 
-Data parallelism (``train.py:72-80``): with ``--mesh data=N``, or without
-``--mesh`` when torchrun's ``WORLD_SIZE`` is above 1 (then ``data=WORLD_SIZE``),
-the run is one rank of N processes, each on its rows of every batch
+The process mesh (``train.py:72-80``): with ``--mesh data=N`` or
+``--mesh data=N,space=M``, or without ``--mesh`` when torchrun's
+``WORLD_SIZE`` is above 1 (then ``data=WORLD_SIZE``), the run is one rank
+of N*M processes, each on its rows and its en-face columns of every batch
 (``parallel``):
 
-    torchrun --nproc-per-node N -m multimodal_fusion_fpn_torch.train \
-        --mesh data=N [--bn-sync] ...
+    torchrun --nproc-per-node N*M -m multimodal_fusion_fpn_torch.train \
+        --mesh data=N,space=M [--bn-sync] ...
 
 ``--bn-sync`` normalises with the global batch's statistics; without it
 each rank normalises with its own (the original project's per-replica
 BatchNorm).  The backend is the initialised process group's, else nccl on
 the card (one card per rank) and gloo on the CPU (``parallel.mesh.
 init_mesh``).  Rank r computes on ``cuda:LOCAL_RANK``.  Rank 0 alone writes
-the run directory; the standard output of the other ranks is discarded.
-``space=M`` with M > 1 raises ``NotImplementedError`` (the space axis is
-not ported yet); the run never spreads over the visible cards by itself.
+the run directory, and validates on the whole width (the JAX trainer
+validates sharded, with the same numbers); the standard output of the
+other ranks is discarded.  A mesh whose size is not the number of
+processes is refused before a process group is made, and widths that do
+not split evenly over ``space`` at every level before the first step
+(``parallel.mesh.check_widths``).  The run never spreads over the visible
+cards by itself.
 
 :func:`run` trains on the card (``device="cuda"``) through the kernels, or
 on the CPU when the caller passes ``device="cpu"``; ``kernels=False`` runs
@@ -235,7 +240,7 @@ def run(argv=None, device="cuda", kernels: bool = True):
 
 def _run(config, mesh, device, kernels, t_start):
     if mesh is not None:
-        print("Process mesh:", mesh.axes, "backend", mesh.data.backend)
+        print("Process mesh:", mesh.axes, "backend", mesh.world.backend)
     print(pretty_print(config))
     np.random.seed(config.seed)
 

@@ -26,14 +26,16 @@ while the host keeps its numpy copy for the metrics and the strips.
 strips ("debug"), validation ("val") and the checkpoints and curves
 ("save"); ``images`` counts the images trained on.
 
-Data parallelism (``mesh``, ``bn_sync``: ``trainer.py:42,58-66``): every
+The process mesh (``mesh``, ``bn_sync``: ``trainer.py:42,58-66``): every
 rank loads the same global batch from the same seeded loader and keeps its
-rows of each micro-batch (``parallel.mesh.shard_batch``; stacking sharded
-micro-batches is sharding the stacked window on its axis 1), and the steps,
+rows and en-face columns of each micro-batch (``parallel.mesh.
+shard_batch``; stacking sharded micro-batches is sharding the stacked
+window on its axis 1 and its last axis), and the steps,
 the epoch-tail ones included, are ``parallel.step.make_dp_train_step``'s.
 Rank 0 alone validates (with the replicated state, as the JAX trainer
-does) and writes the checkpoints, ``resume.ckpt``, the curves and the
-strips; it broadcasts the validation results, so the top-k ledger and
+does, on the whole width where the JAX trainer validates sharded) and
+writes the checkpoints, ``resume.ckpt``, the curves and the strips; it
+broadcasts the validation results, so the top-k ledger and
 early stopping agree on every rank.  (The entry point discards the
 standard output of the other ranks.)
 """
@@ -242,7 +244,7 @@ class Trainer:
             vals = torch.tensor([results[k] for k in keys] if self.rank0
                                 else [0.0] * len(keys), dtype=torch.float64,
                                 device=self.device)
-            broadcast_([vals], self.mesh.data)
+            broadcast_([vals], self.mesh.world)
             results = dict(zip(keys, vals.tolist()))
         return results
 

@@ -1264,3 +1264,76 @@ def test_deconv_hybrid_matches_plain(gen, dtype, bn):
     else:
         assert launches == {"max_pool3d_cl": 8}
     _assert_close(y.float() - 0.5, ref.float() - 0.5, dtype)
+
+
+# --- the space axis: the kernels on halo slabs, the halo on the card ------
+
+def _sharded(conv, t, w, m):
+    """``conv`` on each of ``m`` X shards of ``t`` (B, Y, X, Z, C) with one
+    neighbouring column on each side, zero at the true edges (what
+    ``comm.halo_x`` gives each rank), cropped and put back together: the
+    route of ``blocks.ConvX`` for kX = 3 under the space axis."""
+    padded = F.pad(t, (0, 0, 0, 0, 1, 1))
+    xl = t.shape[2] // m
+    return torch.cat([conv(padded.narrow(2, s * xl, xl + 2).contiguous(),
+                           w)[:, :, 1:-1] for s in range(m)], dim=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("kernel", ["fused_conv", "banded_conv"])
+def test_kernel_on_the_halo_slab_is_the_whole_sliced(gen, kernel, m, dtype):
+    """K1 (with its prologue computed in torch and an identity prologue in
+    the kernel) and K10 on each (X/m + 2)-wide slab, cropped, against the
+    kernel on the whole tensor, forward and backward (K3 + K6, K10's dgrad
+    and wgrad; the slabs' weight gradients summed by autograd)."""
+    from multimodal_fusion_fpn_torch.ops import banded_conv as tbc
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    ci, co = (16, 32) if kernel == "fused_conv" else (1, 16)
+    x, w = rnd(2, 4, 16, 40, ci), rnd(1, 3, 3, ci, co) * 0.2
+    s, b = rnd(ci), rnd(ci)
+    g = rnd(2, 4, 16, 40, co)
+    names = (("fused_conv", "fused_conv_dgrad", "fused_conv_wgrad")
+             if kernel == "fused_conv" else
+             ("banded_conv", "banded_conv_dgrad", "banded_conv_wgrad"))
+    counts = tfc.launches if kernel == "fused_conv" else tbc.launches
+    grads = []
+    for sharded in (False, True):
+        leaves = [v.clone().requires_grad_() for v in (x, s, b, w)]
+        xg, sg, bg, wg = leaves
+        before = {k: counts[k] for k in names}
+        if kernel == "banded_conv":
+            y = (_sharded(tbc.banded_conv, xg, wg, m) if sharded
+                 else tbc.banded_conv(xg, wg))
+            leaves = [xg, wg]
+        elif sharded:
+            y = _sharded(lambda u, v: tfc.fused_conv(u, None, None, v, False),
+                         tfc.affine_relu(xg, sg, bg, True), wg, m)
+        else:
+            y = tfc.fused_conv(xg, sg, bg, wg, True)
+        y.backward(g)
+        torch.cuda.synchronize()
+        n = m if sharded else 1
+        assert {k: counts[k] - before[k] for k in names} == dict.fromkeys(
+            names, n)
+        grads.append([y.detach()] + [v.grad for v in leaves])
+    for got, want in zip(grads[1], grads[0]):
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_halo_x_on_card_tensors_over_gloo(gen, tmp_path):
+    """``comm.halo_x`` over two gloo ranks sharing the card (CUDA tensors
+    staged through the host), h = 1 and 2, along X and along the z axis of
+    the singleton-X view, forward and backward, against the zero-padded
+    whole sliced (``torch_dp_worker.halo_ranks``)."""
+    import torch_dp_worker as worker
+    from torch_dp_launch import spawn
+    spawn(worker.halo_ranks, 2, str(tmp_path / "store"),
+          args=(str(tmp_path), "cuda"), timeout=300)
+    for r in range(2):
+        res = torch.load(tmp_path / f"halo{r}.pt", weights_only=False)
+        assert len(res) == 4
+        for key, (fwd, bwd) in res.items():
+            assert fwd <= 1e-12 and bwd <= 1e-12, (r, key, fwd, bwd)

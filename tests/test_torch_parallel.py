@@ -1,12 +1,16 @@
-"""The port's data parallelism against the JAX package's mesh step, on the
+"""The port's process mesh against the JAX package's mesh steps, on the
 CPU: two processes over gloo (``torch_dp_launch.spawn``, the ranks' side in
 ``tests/torch_dp_worker.py``), ``tiny_spec``, a global batch of B=2.
 
-* (a) ``parse_mesh_spec``: the JAX package's dicts and errors; ``space``
-  above 1 refused before any process group is made.
+* (a) ``parse_mesh_spec``: the JAX package's dicts and errors; what is
+  still refused before any process group is made: a mesh the processes
+  cannot fill, widths that do not split over ``space`` at every level,
+  and the bucketing extents or ``block_fusion`` under the space axis.
 * (b) Per-replica mode (``bn_sync=False``) against the JAX
-  ``make_dp_train_step(bn_sync=False)`` on ``make_mesh("data=2")`` of two
-  CPU devices: one step of FPN2D from the same numpy weights (running stats
+  ``make_dp_train_step(bn_sync=False)`` on ``make_mesh("data=2,space=2")``
+  of four CPU devices with the mesh declared (``set_space_sharding``; the
+  ``shard_map`` splits the batch over ``data`` only, so this is the
+  ``data=2`` step): one step of FPN2D from the same numpy weights (running stats
   far from the identity) through ``weights.state_dict_from_jax``; the
   parameters, the running stats, the loss, its parts, the two Dice values
   and the BCE, each tensor to max-abs-err <= 1e-4 * max|ref|.  Both sides
@@ -15,8 +19,10 @@ CPU: two processes over gloo (``torch_dp_launch.spawn``, the ranks' side in
   the two packages and moves single gradient tensors by more
   (``tests/test_torch_train.py``).
 * (c) Synced mode (``bn_sync=True``) against the JAX ``make_train_step``
-  on the global batch, which is what the JAX ``bn_sync=True`` returns, at
-  the same tolerance; the hybrid's synced step against the port's
+  on the global batch, which is what the JAX ``bn_sync=True`` returns, run
+  on ``make_mesh("space=2")`` with the batch's width sharded and the mesh
+  declared (the JAX space mesh step), at the same tolerance; the hybrid's
+  synced step against the port's
   single-process step on the global batch (the kernel routes' stats
   epilogue, K10's entry and the cuDNN stages), and with dropout in every
   slot the synced step against the single-process step from the same
@@ -31,10 +37,22 @@ CPU: two processes over gloo (``torch_dp_launch.spawn``, the ranks' side in
   on the two ranks.
 * (f) ``train.run(..., device="cpu")`` with ``--mesh data=2`` in the two
   processes, 1 epoch of 2 steps: rank 0 writes the run's tree, rank 1 (in
-  an empty working directory) writes no file and prints nothing.
+  an empty working directory) writes no file and prints nothing; the same
+  at ``--mesh data=1,space=2``.
+* (g) The space axis, ``data=1,space=2`` in the same two processes: FPN2D
+  synced and per replica against (c)'s JAX space mesh step (per replica
+  at ``data=1`` each data shard is the whole batch, which is what the JAX
+  per-replica step computes on a declared space mesh, (b)); the hybrid's
+  synced step, FPN2D with dropout in every slot and per-replica
+  accumulation against (c)'s and (d)'s single-process steps on the global
+  batch, at the same tolerance.
+* (h) ``comm.halo_x`` and ``comm.across_cols`` over three processes and
+  over two of them (``torch_dp_worker.halo_ranks``), forward and
+  backward, against the whole tensor padded (resized) and sliced: the
+  halos at the true edges zero, each halo's cotangent back on its owner.
 
-The ranks run in one spawn while the JAX references are traced and
-compiled in this process.
+The ranks run in two spawns (two processes, three for (h)) while the JAX
+references are traced and compiled in this process.
 """
 
 import concurrent.futures
@@ -50,6 +68,7 @@ from multimodal_fusion_fpn_tpu import losses as jlosses
 from multimodal_fusion_fpn_tpu.config import make_config as jmake_config
 from multimodal_fusion_fpn_tpu.models import blocks as jblocks
 from multimodal_fusion_fpn_tpu.models.zoo import build_model as jbuild
+from multimodal_fusion_fpn_tpu.ops.pallas import fused_conv as jfc
 from multimodal_fusion_fpn_tpu.parallel import mesh as jmesh
 from multimodal_fusion_fpn_tpu.parallel.step import \
     make_dp_train_step as jdp_step
@@ -60,6 +79,7 @@ from multimodal_fusion_fpn_tpu.train.step import make_train_step as jstep
 from multimodal_fusion_fpn_torch.data.synthetic import make_synthetic_hrf
 from multimodal_fusion_fpn_torch.models.arch_config import ArchSpec
 from multimodal_fusion_fpn_torch.models.zoo import build_model
+from multimodal_fusion_fpn_torch.parallel import comm
 from multimodal_fusion_fpn_torch.parallel import mesh as tmesh
 from multimodal_fusion_fpn_torch.weights import state_dict_from_jax
 
@@ -101,12 +121,15 @@ def _argv(paths, ini):
 
 
 def _jax_refs(tiny_spec, params, stats, batch, pool):
-    """The JAX per-replica mesh step and the global step (futures of their
-    numpy (state, aux)), traced here and compiled in ``pool``."""
+    """The JAX per-replica mesh step on ``data=2,space=2`` and the global
+    step on the ``space=2`` mesh, each with its mesh declared (futures of
+    their numpy (state, aux)), traced here and compiled in ``pool``."""
     wide = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)
     params, stats = wide(params), wide(stats)
     key = jax.random.PRNGKey(1)
-    mesh = jmesh.make_mesh("data=2", jax.devices()[:2])
+    meshes = {"per_replica": jmesh.make_mesh("data=2,space=2",
+                                             jax.devices()[:4]),
+              "synced": jmesh.make_mesh("space=2", jax.devices()[:2])}
     prev = jblocks._FUSED_MODE
     jblocks.set_fused_stage_mode("off")
     out = {}
@@ -121,12 +144,21 @@ def _jax_refs(tiny_spec, params, stats, batch, pool):
                            dtype=jnp.float64)
             crit = jlosses.Mix({"Dice Loss": jlosses.dice_loss_joint(),
                                 "BCE loss": jlosses.bce_loss()})
-            steps = {"per_replica": jdp_step(model, tx, crit, mesh,
+            steps = {"per_replica": jdp_step(model, tx, crit,
+                                             meshes["per_replica"],
                                              bn_sync=False),
                      "synced": jstep(model, tx, crit, donate=False)}
             for name, step in steps.items():
-                lowered = step.lower(state, batch, key)
-                out[name] = pool.submit(_run, lowered, state, batch, key)
+                mesh = meshes[name]
+                args = ((state, batch, key) if name == "per_replica" else
+                        (jmesh.shard_state(state, mesh),
+                         jmesh.shard_batch(batch, mesh), key))
+                jfc.set_space_sharding(mesh)
+                try:
+                    lowered = step.lower(*args)
+                finally:
+                    jfc.set_space_sharding(None)
+                out[name] = pool.submit(_run, lowered, *args)
     finally:
         jblocks.set_fused_stage_mode(prev)
     return out
@@ -142,7 +174,8 @@ def _run(lowered, *args):
 @pytest.fixture(scope="module")
 def runs(tiny_spec, tmp_path_factory):
     """The two ranks' results (``torch_dp_worker``), the JAX references
-    (futures) and the run directories of (f)."""
+    (futures; under "halo" the three ranks' results of (h)) and the run
+    directories of (f)."""
     out = tmp_path_factory.mktemp("dp")
     spec = ArchSpec(tiny_spec.channels)
     params, stats, sd = _trees("FPN2D", spec, 11)
@@ -150,22 +183,29 @@ def runs(tiny_spec, tmp_path_factory):
     paths = make_synthetic_hrf(str(out / "data"), n_patients=8, d=16, h=64,
                                w=32, enface_h=80, enface_w=32, seed=3)
     (out / "tiny.ini").write_text(INI)
-    cwds = [out / "rank0", out / "rank1"]
-    for d in cwds:
-        d.mkdir()
+    cwds = {name: [out / name / "rank0", out / name / "rank1"]
+            for name in ("entry", "entry_space")}
+    for d in cwds["entry"] + cwds["entry_space"]:
+        d.mkdir(parents=True)
     torch.save({"channels": tuple(tiny_spec.channels), "sd": sd,
                 "batch": batch, "batch2": _batch(1),
                 "hybrid_sd": _trees("FPNHybridFusion", spec, 12)[2],
                 "hybrid_batch": _batch(2),
                 "argv": _argv(paths, str(out / "tiny.ini")),
-                "run_cwd": [str(d) for d in cwds]}, out / "inputs.pt")
+                "run_cwd": {k: [str(d) for d in v] for k, v in cwds.items()}},
+               out / "inputs.pt")
     ctx = spawn(worker.ranks, 2, str(out / "store"), args=(str(out),),
                 threads=1, join=False)
+    halo_ctx = spawn(worker.halo_ranks, 3, str(out / "halo_store"),
+                     args=(str(out),), threads=1, join=False)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         refs = _jax_refs(tiny_spec, params, stats, batch, pool)
+        wait(halo_ctx, timeout=300)
         wait(ctx, timeout=300)
         ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
                  for r in range(2)]
+        refs["halo"] = [torch.load(out / f"halo{r}.pt", weights_only=False)
+                        for r in range(3)]
         yield ranks, refs, cwds
 
 
@@ -220,10 +260,46 @@ def test_parse_mesh_spec_matches_jax(spec, n):
         assert tmesh.parse_mesh_spec(spec, n) == want
 
 
-def test_space_axis_is_refused_before_a_group_is_made():
+def _lone_mesh(space):
+    """A mesh of ``space`` ranks seen from rank 0, with no process group
+    behind it: enough for what is refused before any collective."""
+    one = comm.Group(pg=None, rank=0, size=1, backend="gloo", ranks=(0,))
+    group = comm.Group(pg=None, rank=0, size=space, backend="gloo",
+                       ranks=tuple(range(space)))
+    return tmesh.Mesh(axes={"data": 1, "space": space}, world=group,
+                      data=one, space=group, device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("case", ["processes", "widths", "extents",
+                                  "block_fusion"])
+def test_space_axis_is_refused_before_a_group_is_made(case):
     assert not torch.distributed.is_initialized()
-    with pytest.raises(NotImplementedError, match="space axis"):
-        tmesh.init_mesh("data=1,space=2", device="cpu")
+    if case == "processes":
+        # a mesh of two ranks in a run of one process
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+            tmesh.init_mesh("data=1,space=2", device="cpu")
+    elif case == "widths":
+        # X = 48 at space=2: level 4 is 6 wide, not a multiple of 2 x 2
+        # (the JAX package pads it through GSPMD, tests/test_parallel.py)
+        b = {**_batch(0), "image": np.zeros((2, 1, 8, 64, 48))}
+        with pytest.raises(ValueError, match="level 4 is 6 wide"):
+            tmesh.check_widths(tmesh.shard_batch(b, _lone_mesh(2)),
+                               _lone_mesh(2), (2, 2, 2, 2),
+                               ("image", "slo"))
+    else:
+        model = build_model(worker.cfg("FPNHybridFusion"),
+                            spec=ArchSpec((2, 4, 8, 16, 32)), device="cpu")
+        b = {k: torch.as_tensor(v[..., :16], dtype=torch.float32)
+             for k, v in _batch(0).items()}
+        kw = {}
+        if case == "extents":
+            b["__valid_image__"] = torch.tensor([8, 64, 16])
+        else:
+            kw["block_fusion"] = "pair"
+        space = _lone_mesh(2).space
+        with comm.sharded(comm.Shards(cols=space, total=space)), \
+                pytest.raises(ValueError, match=case.replace("_", ".")):
+            model(b, **kw)
     assert not torch.distributed.is_initialized()
 
 
@@ -291,11 +367,13 @@ def test_accumulation_at_data_2_gathers_every_sample(runs):
 # --- (e) ------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", ["per_replica", "synced", "hybrid",
-                                  "dropout", "accum"])
+                                  "dropout", "accum", "space"])
 def test_ranks_hold_bit_identical_state(runs, case):
     ranks, _, _ = runs
     pick = {"hybrid": ("dp",), "dropout": ("synced", "per_replica"),
-            "accum": ("data2",)}.get(case)
+            "accum": ("data2",),
+            "space": ("synced", "per_replica", "hybrid", "dropout",
+                      "accum")}.get(case)
     outs = [[r[case]] if pick is None else [r[case][p] for p in pick]
             for r in ranks]
     for a, b in zip(*outs):
@@ -307,9 +385,13 @@ def test_ranks_hold_bit_identical_state(runs, case):
 
 # --- (f) ------------------------------------------------------------------
 
-def test_entry_point_writes_on_rank_0_only(runs):
-    ranks, _, cwds = runs
-    infos = [r["entry"]["info"] for r in ranks]
+@pytest.mark.parametrize("name", ["entry", "entry_space"])
+def test_entry_point_writes_on_rank_0_only(runs, name):
+    """(f) at ``--mesh data=2``, and at ``data=1,space=2``: the entry point
+    trains with each rank on its half of the width."""
+    ranks, _, run_cwds = runs
+    cwds = run_cwds[name]
+    infos = [r[name]["info"] for r in ranks]
     for info in infos:
         assert info["steps"] == 2 and info["step"] == 2
         assert info["images"] == 4
@@ -325,5 +407,40 @@ def test_entry_point_writes_on_rank_0_only(runs):
     assert "resume.ckpt" not in names
     assert not [n for d, _, ns in os.walk(cwds[1]) for n in ns]
     assert not os.listdir(cwds[1])
-    assert ranks[1]["entry"]["stdout"] == ""
-    assert "Process mesh" in ranks[0]["entry"]["stdout"]
+    assert ranks[1][name]["stdout"] == ""
+    assert "Process mesh" in ranks[0][name]["stdout"]
+
+
+# --- (g) ------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["synced", "per_replica"])
+def test_space_step_matches_the_jax_space_mesh_step(runs, mode):
+    ranks, refs, _ = runs
+    for r in ranks:
+        _against_jax(r["space"][mode], refs["synced"])
+
+
+@pytest.mark.parametrize("case", ["hybrid", "dropout", "accum"])
+def test_space_step_is_the_global_batch_step(runs, case):
+    ranks, _, _ = runs
+    single = ranks[0][case]["single"]
+    for r in ranks:
+        got = r["space"][case]
+        _all_close(got["sd"], single["sd"])
+        _all_close(got["grads"], single["grads"])
+        _close(got["aux"]["loss"], single["aux"]["loss"].numpy(), "loss")
+        for k, v in single["aux"]["metrics"].items():
+            assert got["aux"]["metrics"][k].shape == v.shape, k
+            _close(got["aux"]["metrics"][k], v.numpy(), k)
+
+
+# --- (h) ------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_halo_x_is_the_padded_whole_sliced(runs, n):
+    _, refs, _ = runs
+    cases = [(k, v) for res in refs["halo"] for k, v in res.items()
+             if k[1] == n]
+    assert len(cases) == n * 5
+    for key, (fwd, bwd) in cases:
+        assert fwd <= 1e-12 and bwd <= 1e-12, (key, fwd, bwd)

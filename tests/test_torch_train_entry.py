@@ -293,13 +293,15 @@ def test_exec_test_builds_and_returns(run_dirs, tmp_path, monkeypatch):
 
 
 def test_mesh_is_refused(run_dirs, tmp_path):
-    """A mesh with a space axis is refused (the data axis runs:
+    """A mesh of two ranks in a run of one process is refused before a
+    process group is made (both axes run over several processes:
     ``tests/test_torch_parallel.py``), and nothing is written."""
-    with _cwd(tmp_path), pytest.raises(NotImplementedError,
-                                       match="space axis"):
+    with _cwd(tmp_path), pytest.raises(ValueError,
+                                       match="needs 2 devices, have 1"):
         ttrain.run(_argv(run_dirs, extra=["--mesh", "data=1,space=2"]),
                    device="cpu")
     assert not _files(tmp_path)
+    assert not torch.distributed.is_initialized()
 
 
 def test_resume_through_the_entry_point_with_dropout(run_dirs, tmp_path):
